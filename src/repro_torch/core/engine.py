@@ -1,0 +1,106 @@
+"""Layer-1 engine registry for the FedGAT model.
+
+The port of ``repro/core/engine.py`` with the pack-free engines:
+
+* ``direct`` — the polynomial-attention oracle (core/poly_attention.py);
+* ``kernel`` — the same layer through the fused CUDA ``cheb_attn`` kernel
+  (kernels/ops.py);
+* ``exact``  — the plain GAT layer (core/gat.py).
+
+The pack-building ``matrix`` and ``vector`` engines are not registered in
+this package yet. ``get_engine`` raises :class:`UnknownEngineError` for
+any name that is not registered.
+"""
+from __future__ import annotations
+
+from typing import Callable, ClassVar, Dict, List, Type
+
+from repro_torch.core.gat import gat_layer_nbr
+from repro_torch.core.poly_attention import poly_gat_layer
+from repro_torch.kernels.ops import cheb_attn_layer
+
+_ENGINES: Dict[str, Type["Engine"]] = {}
+
+
+def register_engine(name: str) -> Callable[[Type["Engine"]], Type["Engine"]]:
+    """Class decorator registering an :class:`Engine` under ``name``."""
+
+    def decorator(cls: Type["Engine"]) -> Type["Engine"]:
+        if name in _ENGINES:
+            raise ValueError(f"engine {name!r} already registered ({_ENGINES[name]!r})")
+        cls.name = name
+        _ENGINES[name] = cls
+        return cls
+
+    return decorator
+
+
+def registered_engines() -> List[str]:
+    """Names of all registered engines, sorted."""
+    return sorted(_ENGINES)
+
+
+class UnknownEngineError(KeyError, ValueError):
+    """Unknown engine name. Subclasses both KeyError (registry contract)
+    and ValueError (the ``fedgat_forward`` contract of the reference)."""
+
+    def __str__(self):  # KeyError.__str__ would repr() the message
+        return self.args[0] if self.args else ""
+
+
+def get_engine(name: str) -> Type["Engine"]:
+    """Resolve an engine class by name; the error lists what is available."""
+    try:
+        return _ENGINES[name]
+    except KeyError:
+        raise UnknownEngineError(
+            f"unknown engine {name!r}: registered engines are {registered_engines()}"
+        ) from None
+
+
+class Engine:
+    """Layer-1 engine interface: built from a ``FedGATConfig``;
+    :meth:`apply` is the client-side layer-1 update. ``pack`` is the
+    pre-communicated payload of the pack-building engines of the reference
+    and is ``None`` for every engine registered here."""
+
+    name: ClassVar[str] = "?"
+    needs_coeffs: ClassVar[bool] = True    # apply() consumes series coeffs
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def apply(self, params, pack, coeffs, h, nbr_idx, nbr_mask, *, concat=True):
+        raise NotImplementedError
+
+
+@register_engine("direct")
+class DirectEngine(Engine):
+    """The mathematical oracle: same series, per-edge, no pack."""
+
+    def apply(self, params, pack, coeffs, h, nbr_idx, nbr_mask, *, concat=True):
+        return poly_gat_layer(
+            params, coeffs, h, nbr_idx, nbr_mask,
+            basis=self.cfg.basis, domain=self.cfg.domain, concat=concat,
+        )
+
+
+@register_engine("kernel")
+class KernelEngine(Engine):
+    """The fused CUDA ``cheb_attn`` kernel (plain version on CPU tensors)."""
+
+    def apply(self, params, pack, coeffs, h, nbr_idx, nbr_mask, *, concat=True):
+        return cheb_attn_layer(
+            params, coeffs, h, nbr_idx, nbr_mask,
+            basis=self.cfg.basis, domain=self.cfg.domain, concat=concat,
+        )
+
+
+@register_engine("exact")
+class ExactEngine(Engine):
+    """Plain GAT layer (degenerate engine, for baselines)."""
+
+    needs_coeffs = False
+
+    def apply(self, params, pack, coeffs, h, nbr_idx, nbr_mask, *, concat=True):
+        return gat_layer_nbr(params, h, nbr_idx, nbr_mask, concat=concat)

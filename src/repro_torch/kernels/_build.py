@@ -1,0 +1,88 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` is compiled on first use into a shared library with
+a plain C interface, under ``build/kernels/`` at the root of the checkout
+(listed in ``.gitignore``). The library's file name carries a digest of its
+source and flags, so an edited source is rebuilt and a stale library is
+never loaded. Several sources build in parallel, one ``nvcc`` each.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# name -> {"seconds": wall time of the nvcc run, "ptxas": its -v report};
+# only sources compiled by this process appear.
+build_info: Dict[str, Dict[str, object]] = {}
+
+
+def kernel_names() -> List[str]:
+    """Every kernel source under ``csrc/``, by name."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found is None and os.access("/usr/local/cuda/bin/nvcc", os.X_OK):
+        found = "/usr/local/cuda/bin/nvcc"
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (PATH, /usr/local/cuda/bin): the CUDA kernels are "
+            "built from source at first use and need the CUDA toolkit"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every named source that has no up-to-date library, all
+    ``nvcc`` processes started together. Returns {name: library path}."""
+    paths = {name: library_path(name) for name in names}
+    todo = {name: p for name, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name, out in todo.items():
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, todo[name])           # atomic: readers never see half a file
+        build_info[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return paths
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Load the library for ``csrc/<name>.cu``, building it if needed. The
+    kernel's wrapper keeps the result."""
+    return ctypes.CDLL(str(build([name])[name]))
