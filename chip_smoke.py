@@ -12,16 +12,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    N1e6 B16 D16, p=16), with isolated rows and negative-denominator rows
    spliced in, and on ragged 2-D, 3-D and 4-D layouts. Each kernel is timed
    (median of CUDA-event timings) beside its plain version and its bound.
+   The backward kernel likewise, all four cotangents against the plain
+   backward and ``dx`` against ``torch.autograd`` through the plain forward,
+   at the sbm_1m training shape from a real layer-1 input (with isolated and
+   negative-denominator rows spliced in) and on the ragged layouts.
 3. Serving: ``GraphInferenceServer`` with ``engine="kernel"`` answers 256
    Poisson queries at 2000 qps from 4 clients through ``MicroBatcher`` on
    ``sbm_1m`` with ``FedGATConfig()`` widths and seeded random weights. The
    kernels' launch counts are zeroed just before and read just after; the
    served logits are held against the ``direct`` engine, and a small graph
    served on the card against the plain path on the CPU.
+4. Training: ``run_federated`` (fedgat, ``FedGATConfig(engine="kernel")``,
+   4 clients, beta 1.0, fedavg, 3 rounds of 3 local steps) on ``sbm_1m``,
+   counts zeroed just before and read just after: exactly
+   rounds*n_sel*local_steps backward and rounds*(n_sel*local_steps + 1)
+   forward launches, finite params. Then the device times of one local
+   step and its parts, and the same config on ``tiny`` on the card against
+   the CPU (curves to 1e-6, params to rtol 1e-3 / atol 1e-4).
 
-The second-to-last line is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of the
-JAX package.
+The second-to-last line is a JSON object describing each kernel
+(``launches``: the forward's over the serving and training phases, the
+backward's over the training phase); the last line is ``{"ok": true,
+"device": {...}}``. Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -39,6 +51,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5      # FMA contraction and summation order differ
+# Gradients: the derivative of a degree-16 monomial series cancels
+# differently under another summation order; the reference's own gradient
+# tolerance (tests/test_kernel_engine.py:275-276).
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
+F32_ULP = 2.0 ** -24         # unit roundoff of float32
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12     # H100 SXM, float32 outside the tensor cores
 SEED = 0
@@ -85,6 +102,23 @@ def cheb_attn_bound_ms(x, h_nb, mask, coeffs, out):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
+def cheb_attn_bwd_bound_ms(x, h_nb, mask, coeffs, dout, needs):
+    """Least time for the backward on these inputs, computing the
+    cotangents in ``needs``: x, h_nb, mask, coeffs and dout read once, each
+    asked-for cotangent written once; or its float32 operations at peak
+    (Horner for p and p', the recomputed out, the D-sums of g_e, den, dx;
+    dh_nb, dmask and dcoeffs add theirs when asked for)."""
+    outs = [x, h_nb, mask, coeffs]
+    nbytes = 4 * (x.numel() + h_nb.numel() + mask.numel() + coeffs.numel() + dout.numel()
+                  + sum(t.numel() for t, need in zip(outs, needs) if need))
+    p1, d = coeffs.numel(), h_nb.shape[-1]
+    per_score = 4 * p1 + 5 * d + 3
+    per_score += 2 * d * needs[1] + 2 * needs[2] + 2 * p1 * needs[3]
+    flops = x.numel() * per_score
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
 def row_denominator(x, mask, coeffs, i):
     """sum_b series(x[..., i, b]) * mask[..., i, b] for every head (and graph)."""
     from repro_torch.core.chebyshev import eval_power_series
@@ -120,6 +154,105 @@ def compare_cheb_attn(label, x, h_nb, mask, coeffs, iso=(), neg=()):
     return err
 
 
+def dcoeffs_abs_terms(x, h_nb, mask, coeffs, dout):
+    """sum |g_e * m * x^k| per k, in float64: the scale of the dcoeffs sums.
+    A row whose scores are equal across its neighbours has sum_b g_e = 0
+    exactly, so its terms cancel and dcoeffs[k] can be far smaller than
+    the terms it adds; any two float32 summation orders then differ by up
+    to a few ulps of this scale."""
+    from repro_torch.kernels.ref import _batched4
+
+    x4, h4, m4 = (t.double() for t in _batched4(x, h_nb, mask))
+    d4 = dout.double().reshape(x4.shape[:-1] + dout.shape[-1:])
+    p = torch.zeros_like(x4)
+    for q in coeffs.double().flip(0):
+        p = p * x4 + q
+    m = m4[:, None]
+    e = p * m
+    den = e.sum(-1, keepdim=True)
+    ok = den != 0
+    safe = torch.where(ok, den, 1.0)
+    out = torch.where(ok, torch.einsum("ghnb,gnbd->ghnd", e, h4) / safe, 0.0)
+    s = torch.einsum("ghnd,gnbd->ghnb", d4, h4) - (d4 * out).sum(-1, keepdim=True)
+    t = (torch.where(ok, s / safe, 0.0) * m).abs()
+    scale = []
+    for _ in range(coeffs.numel()):
+        scale.append(t.sum())
+        t = t * x4.abs()
+    return torch.stack(scale).float()
+
+
+def compare_cheb_attn_backward(label, x, h_nb, mask, coeffs, dout, iso=(), nan_rows=()):
+    """All four cotangents of the backward kernel against the plain
+    backward, and dx against torch.autograd through the plain forward.
+    dcoeffs is held to the same tolerance plus the float32 rounding of its
+    sums, 64 ulp of sum |terms| (see :func:`dcoeffs_abs_terms`). Returns the
+    largest absolute error of the other cotangents."""
+    from repro_torch.kernels.cheb_attn import cheb_attn_backward
+    from repro_torch.kernels.ref import cheb_attn_bwd_ref, cheb_attn_ref
+
+    got = cheb_attn_backward(x, h_nb, mask, coeffs, dout)
+    torch.cuda.synchronize()
+    want = cheb_attn_bwd_ref(x, h_nb, mask, coeffs, dout)
+    xg = x.detach().clone().requires_grad_()
+    (auto_dx,) = torch.autograd.grad(cheb_attn_ref(xg, h_nb, mask, coeffs), xg, dout)
+    del xg
+    errs = []
+    node_axis = {"dx": -2, "dh_nb": -3, "dmask": -2}
+    for name, a, b in [*zip(("dx", "dh_nb", "dmask", "dcoeffs"), got, want),
+                       ("dx vs autograd", got[0], auto_dx)]:
+        if a.shape != b.shape:
+            fail(f"cheb_attn backward {label} {name}: shape {tuple(a.shape)} != {tuple(b.shape)}")
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            fail(f"cheb_attn backward {label} {name}: NaN positions differ")
+        ok = torch.isfinite(b)
+        errs.append(float((a - b).abs()[ok].max()) if bool(ok.any()) else 0.0)
+        if name == "dcoeffs":
+            scale = dcoeffs_abs_terms(x, h_nb, mask, coeffs, dout)
+            allow = GRAD_ATOL + GRAD_RTOL * b.abs() + 64 * F32_ULP * scale
+            close = bool(((a - b).abs() <= allow)[ok].all())
+        else:
+            close = torch.allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL, equal_nan=True)
+        if not close:
+            fail(f"cheb_attn backward {label} {name}: kernel disagrees with the plain "
+                 f"version (max abs err {errs[-1]:.3e})")
+        if name in node_axis and not all(
+                bool((a.select(a.dim() + node_axis[name], i) == 0).all()) for i in iso):
+            fail(f"cheb_attn backward {label} {name}: isolated rows are not exact zeros")
+    nans = all(bool(torch.isnan(got[0][..., i, :]).all()) for i in nan_rows)
+    if not nans:
+        fail(f"cheb_attn backward {label}: masked infinite scores did not give NaN rows")
+    print(f"cheb_attn backward {label}: x{tuple(x.shape)} h_nb{tuple(h_nb.shape)} max_abs_err "
+          f"dx {errs[0]:.3e} dh_nb {errs[1]:.3e} dmask {errs[2]:.3e} dcoeffs {errs[3]:.3e} "
+          f"(largest sum|terms| {float(scale.max()):.3e}) "
+          f"(dx vs autograd {errs[4]:.3e}) allclose(rtol={GRAD_RTOL},atol={GRAD_ATOL}; dcoeffs "
+          f"+64ulp of sum|terms|)=True "
+          f"isolated_rows_exact_zero=True nan_rows={len(nan_rows)}", flush=True)
+    del got, want, auto_dx
+    return max(errs[:3] + errs[4:])        # dcoeffs is judged on its own scale
+
+
+def print_step_profile(step) -> None:
+    """Device time of one call of ``step`` by kernel, from torch.profiler:
+    the total over kernels and the five largest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]          # kernels, not the ops that launch them
+    total = sum(ms for _, ms in rows)
+    top = sorted(rows, key=lambda r: -r[1])[:5]
+    print(f"train step profile (torch.profiler, {len(rows)} kernels): device total "
+          f"{total:.3f} ms; " + "; ".join(
+              f"{name[:70]} {ms:.3f} ms ({100 * ms / max(total, 1e-9):.1f}%)" for name, ms in top),
+          flush=True)
+
+
 def layer1_inputs(params, h, nbr_idx, nbr_mask):
     """What cheb_attn_layer hands the kernel (kernels/ops.py)."""
     from repro_torch.core.poly_attention import edge_scores, head_projections
@@ -136,9 +269,11 @@ def main() -> None:
     from repro_torch.core import FedGATConfig, get_engine, init_params, layered_forward
     from repro_torch.core.fedgat_model import graph_tensors
     from repro_torch.graphs import make_cora_like, make_sbm
+    from repro_torch.federated import FederatedConfig, run_federated
+    from repro_torch.federated import trainer as fed_trainer
     from repro_torch.kernels import _build
-    from repro_torch.kernels.cheb_attn import cheb_attn
-    from repro_torch.kernels.ref import cheb_attn_ref
+    from repro_torch.kernels.cheb_attn import cheb_attn, cheb_attn_backward
+    from repro_torch.kernels.ref import cheb_attn_bwd_ref, cheb_attn_ref
     from repro_torch.serving import GraphInferenceServer, MicroBatcher, Query
 
     t_start = time.perf_counter()
@@ -224,6 +359,50 @@ def main() -> None:
         del x, h_nb, mask_f, out
     torch.cuda.empty_cache()
 
+    # -- phase 2b: the backward kernel against its plain version -----------
+    with torch.no_grad():
+        x, h_nb, mask_f = layer1_inputs(params[0], h, nbr_idx, nbr_mask)
+    dout = torch.randn(x.shape[:-1] + h_nb.shape[-1:], generator=gen, device=dev)
+    bwd_errs = [compare_cheb_attn_backward("train", x, h_nb, mask_f, coeffs, dout)]
+    x2, m2 = x.clone(), mask_f.clone()
+    m2[iso] = 0.0
+    x2[:, neg] = -6.0
+    m2[neg] = 1.0
+    bwd_errs.append(compare_cheb_attn_backward(
+        "train+isolated+negative", x2, h_nb, m2, coeffs, dout, iso=iso))
+    del x2, m2
+    for label, lead, glead, (nn_, b, d) in [
+        ("ragged-3d", (8,), (), (1001, 24, 48)),
+        ("ragged-2d", (), (), (1001, 24, 48)),
+        ("ragged-4d", (3, 4), (3,), (517, 8, 40)),
+    ]:
+        xs = torch.randn(lead + (nn_, b), generator=gen, device=dev).clamp_(-3.5, 3.5)
+        ms = (torch.rand(glead + (nn_, b), generator=gen, device=dev) < 0.7).float()
+        ms[..., 0] = 1.0
+        ms[..., 5, :] = 0.0
+        xs[..., 9, :] = -6.0
+        ms[..., 9, :] = 1.0
+        xs[..., 11, 3] = float("inf")       # masked infinite score -> NaN row
+        ms[..., 11, 3] = 0.0
+        hs = torch.randn(glead + (nn_, b, d), generator=gen, device=dev) * ms[..., None]
+        ds = torch.randn(xs.shape[:-1] + (d,), generator=gen, device=dev)
+        bwd_errs.append(compare_cheb_attn_backward(
+            label, xs, hs, ms, coeffs, ds, iso=(5,), nan_rows=(11,)))
+    dx_only = (True, False, False, False)              # what training asks for
+    ms_bwd = cuda_ms(lambda: cheb_attn_backward(x, h_nb, mask_f, coeffs, dout, dx_only))
+    ms_bwd_all = cuda_ms(lambda: cheb_attn_backward(x, h_nb, mask_f, coeffs, dout), reps=5)
+    ms_bwd_plain = cuda_ms(lambda: cheb_attn_bwd_ref(x, h_nb, mask_f, coeffs, dout, dx_only),
+                           reps=5, warmup=1)
+    bwd_bound_ms, bwd_bound_by, bwd_bytes = cheb_attn_bwd_bound_ms(
+        x, h_nb, mask_f, coeffs, dout, dx_only)
+    print(f"cheb_attn backward train shape (dx only): kernel {ms_bwd:.4f} ms, plain "
+          f"{ms_bwd_plain:.4f} ms, bound {bwd_bound_ms:.4f} ms ({bwd_bound_by}, "
+          f"{bwd_bytes / 1e9:.3f} GB), {bwd_bytes / (ms_bwd * 1e-3) / 1e12:.3f} TB/s achieved; "
+          f"all four cotangents {ms_bwd_all:.4f} ms; no single PyTorch call computes this "
+          "function, so library_ms is null", flush=True)
+    del x, h_nb, mask_f, dout
+    torch.cuda.empty_cache()
+
     # -- phase 3: serving through the kernel engine ------------------------
     server = GraphInferenceServer(params, cfg, g, method="fedgat", num_clients=4,
                                   engine="kernel", device=dev)
@@ -264,8 +443,79 @@ def main() -> None:
     print(f"serve check: client 0's {len(mine)} answers match the direct engine "
           f"(max abs {err:.3e})", flush=True)
 
-    # A small graph served on the card against the plain path on the CPU.
+    # -- phase 4: federated training through the kernel engine -------------
+    fed_cfg = FederatedConfig(
+        method="fedgat", num_clients=4, beta=1.0, rounds=3, local_steps=3,
+        aggregator="fedavg", seed=SEED, model=FedGATConfig(engine="kernel"),
+    )
+    n_sel = fed_trainer.num_selected(fed_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cheb_attn.launches = 0
+    cheb_attn_backward.launches = 0
+    t0 = time.perf_counter()
+    res = run_federated(g, fed_cfg, device=dev)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_fwd, train_bwd = cheb_attn.launches, cheb_attn_backward.launches
+    want_fwd = fed_cfg.rounds * (n_sel * fed_cfg.local_steps + 1)
+    want_bwd = fed_cfg.rounds * n_sel * fed_cfg.local_steps
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train sbm_1m: fedgat kernel engine, {fed_cfg.num_clients} clients "
+          f"({n_sel} per round), {fed_cfg.rounds} rounds x {fed_cfg.local_steps} local steps: "
+          f"{res['seconds'] / fed_cfg.rounds:.3f} s per round (trainer clock), wall "
+          f"{train_wall:.2f} s with set-up; launches forward {train_fwd} (want {want_fwd}), "
+          f"backward {train_bwd} (want {want_bwd}); peak {peak_gib:.2f} GiB; "
+          f"val {res['val_curve']} test {res['test_curve']}", flush=True)
+    if (train_fwd, train_bwd) != (want_fwd, want_bwd):
+        fail("the training path's kernel launch counts differ from the schedule's")
+    if not all(bool(torch.isfinite(p).all()) for p in res["params"].parameters()):
+        fail("trained params are not finite")
+
+    # Device time of one local step and its parts (after the counts were read).
+    from repro_torch.federated.aggregation import fedavg
+    from repro_torch.optim import adam_init, adam_update
+
+    part = res["partition"]
+    _, forward = fed_trainer.build_forward(fed_cfg, g, dev)
+    labels = torch.as_tensor(g.labels, dtype=torch.int64, device=dev)
+    tr_mask = torch.as_tensor(part.owner == 0, device=dev) & torch.as_tensor(g.train_mask, device=dev)
+    loss_fn = fed_trainer.make_loss_fn(forward, labels)
+    tparams = fed_trainer.param_tree(res["params"])
+    grads = fed_trainer.grad_of(loss_fn, tparams, nbr_mask, tr_mask)
+    opt = adam_init(tparams)
+    stacked = [{k: torch.stack([v] * n_sel) for k, v in layer.items()} for layer in tparams]
+    ms_step = cuda_ms(lambda: fed_trainer.grad_of(loss_fn, tparams, nbr_mask, tr_mask), reps=5)
+    with torch.no_grad():
+        ms_step_fwd = cuda_ms(lambda: loss_fn(tparams, nbr_mask, tr_mask), reps=5)
+    ms_adam = cuda_ms(lambda: adam_update(grads, opt, tparams, fed_cfg.lr,
+                                          weight_decay=fed_cfg.weight_decay), reps=10)
+    ms_fedavg = cuda_ms(lambda: fedavg(stacked), reps=10)
+    print(f"train step sbm_1m (device): forward+backward {ms_step:.3f} ms, of which forward "
+          f"{ms_step_fwd:.3f} ms and backward {ms_step - ms_step_fwd:.3f} ms; backward kernel "
+          f"{ms_bwd:.3f} ms ({100 * ms_bwd / ms_step:.2f}% of the step); adam {ms_adam:.3f} ms; "
+          f"fedavg of {n_sel} clients {ms_fedavg:.3f} ms", flush=True)
+    print_step_profile(lambda: fed_trainer.grad_of(loss_fn, tparams, nbr_mask, tr_mask))
+    del grads, opt, stacked, forward, res
+    torch.cuda.empty_cache()
+
+    # The same training config on a small graph, on the card and on the CPU.
     tiny = make_cora_like("tiny", seed=SEED)
+    on_gpu = run_federated(tiny, fed_cfg, device=dev)
+    on_cpu = run_federated(tiny, fed_cfg, device="cpu")
+    curves = (np.allclose(on_gpu["val_curve"], on_cpu["val_curve"], atol=1e-6)
+              and np.allclose(on_gpu["test_curve"], on_cpu["test_curve"], atol=1e-6))
+    perr = max(float((a.detach().cpu() - b.detach()).abs().max())
+               for a, b in zip(on_gpu["params"].parameters(), on_cpu["params"].parameters()))
+    pclose = all(torch.allclose(a.detach().cpu(), b.detach(), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+                 for a, b in zip(on_gpu["params"].parameters(), on_cpu["params"].parameters()))
+    print(f"tiny training check: card vs CPU curves equal (atol 1e-6) {curves}, final params "
+          f"max abs diff {perr:.3e} allclose(rtol={GRAD_RTOL},atol={GRAD_ATOL}) {pclose}; "
+          f"val {on_gpu['val_curve']} test {on_gpu['test_curve']}", flush=True)
+    if not (curves and pclose):
+        fail("tiny: training on the card disagrees with training on the CPU")
+
+    # A small graph served on the card against the plain path on the CPU.
     tparams = init_params(torch.Generator().manual_seed(SEED), tiny.feature_dim,
                           tiny.num_classes, cfg, device="cpu")
     qs = [Query(c, v) for c in (0, 1) for v in range(tiny.num_nodes)]
@@ -288,12 +538,24 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cheb_attn.cu",
         "replaces": "src/repro/kernels/cheb_attn.py:146",
-        "launches": launches,
+        "launches": launches + train_fwd,
         "max_abs_err": max(errs),
         "ms": ms_kernel,
         "plain_ms": ms_plain,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "cheb_attn_backward",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/cheb_attn.cu",
+        "replaces": "src/repro/kernels/cheb_attn.py:189",
+        "launches": train_bwd,
+        "max_abs_err": max(bwd_errs),
+        "ms": ms_bwd,
+        "plain_ms": ms_bwd_plain,
+        "bound_ms": bwd_bound_ms,
+        "bound_by": bwd_bound_by,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -65,7 +65,13 @@ class Engine:
     and is ``None`` for every engine registered here."""
 
     name: ClassVar[str] = "?"
+    needs_pack: ClassVar[bool] = False     # no engine registered here builds a pack
     needs_coeffs: ClassVar[bool] = True    # apply() consumes series coeffs
+    # Pre-training communication accounting model ("matrix" | "vector" |
+    # "none"; see federated/comm.py). "direct" and "kernel" simulate the
+    # matrix protocol without materialising its pack, so they are charged
+    # the Matrix FedGAT rate (Theorem 1), as in the reference.
+    comm_cost_model: ClassVar[str] = "matrix"
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -98,9 +104,10 @@ class KernelEngine(Engine):
 
 @register_engine("exact")
 class ExactEngine(Engine):
-    """Plain GAT layer (degenerate engine, for baselines)."""
+    """Plain GAT layer (degenerate engine, for baselines like DistGAT)."""
 
     needs_coeffs = False
+    comm_cost_model = "none"  # no pack is communicated
 
     def apply(self, params, pack, coeffs, h, nbr_idx, nbr_mask, *, concat=True):
         return gat_layer_nbr(params, h, nbr_idx, nbr_mask, concat=concat)

@@ -76,14 +76,18 @@ def params_from_numpy(
     params: Sequence[Mapping[str, Any]], *, device: DeviceLike = None
 ) -> nn.ModuleList:
     """The reference's parameter list (``[{"W", "a1", "a2"}, ...]`` of
-    arrays) as the port's parameters on ``device``, layouts unchanged,
-    float32."""
+    arrays, or the GCN's ``[{"W"}, ...]``) as the port's parameters on
+    ``device``, layouts unchanged, float32. Takes numpy arrays, anything
+    ``np.array`` reads, and tensors."""
     dev = resolve_device(device)
+
+    def tensor(a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().numpy()
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
     return nn.ModuleList([
-        nn.ParameterDict({
-            k: nn.Parameter(torch.from_numpy(np.array(layer[k], dtype=np.float32)).to(dev))
-            for k in ("W", "a1", "a2")
-        })
+        nn.ParameterDict({k: nn.Parameter(tensor(layer[k])) for k in layer})
         for layer in params
     ])
 
@@ -140,6 +144,8 @@ class FedGAT:
             torch.as_tensor(cfg.coeffs(), dtype=torch.float32, device=self.device)
             if self.engine.needs_coeffs else None
         )
+        self._graph = None             # the graph whose arrays are on the device
+        self._tensors = None
 
     def init(self, gen: torch.Generator, graph) -> nn.ModuleList:
         """Initialise GAT parameters for ``graph``'s feature/class dims."""
@@ -149,8 +155,13 @@ class FedGAT:
 
     def apply(self, params, graph, nbr_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Forward pass -> class logits (N, C). ``nbr_mask`` restricts edge
-        visibility (e.g. a client's view); defaults to the full-graph mask."""
-        h, nbr_idx, full_mask = graph_tensors(graph, self.device)
+        visibility (e.g. a client's view); defaults to the full-graph mask.
+        The graph's arrays go to the device on the first call for a graph
+        object and are kept for later calls with the same object."""
+        if graph is not self._graph:
+            with torch.inference_mode(False):     # usable by later training calls
+                self._graph, self._tensors = graph, graph_tensors(graph, self.device)
+        h, nbr_idx, full_mask = self._tensors
         if nbr_mask is None:
             nbr_mask = full_mask
         return layered_forward(

@@ -1,9 +1,9 @@
 """Graph Attention Network layers — paper Eq. (1)-(3), neighbour-list form.
 
-The port of ``repro/core/gat.py`` that the serving path needs: the exact
-GAT layer over padded neighbour lists (layers l > 1 of every engine, and
-the whole of the ``exact`` engine), its activations, parameter init and the
-masked accuracy metric.
+The port of ``repro/core/gat.py`` without the dense forms: the exact GAT
+layer over padded neighbour lists (layers l > 1 of every engine, and the
+whole of the ``exact`` engine), its activations, parameter init, the
+masked cross-entropy loss and the masked accuracy metric.
 
 Parameters keep the reference's layout: one mapping per layer with
 ``W (H, d_in, d_out)``, ``a1 (H, d_out)`` and ``a2 (H, d_out)``; a model's
@@ -79,6 +79,16 @@ def gat_layer_nbr(
     if concat:
         return out.permute(1, 0, 2).reshape(h.shape[0], -1)
     return out.mean(dim=0)
+
+
+def masked_cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor
+) -> torch.Tensor:
+    """Mean negative log-likelihood over the nodes where ``mask`` is set."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[:, None].long())[:, 0]
+    mask = mask.to(logits.dtype)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def masked_accuracy(

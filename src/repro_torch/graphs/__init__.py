@@ -6,6 +6,7 @@ from repro_torch.graphs.graph import (
     make_graph,
     make_graph_from_edges,
     sample_neighbors,
+    subgraph,
 )
 from repro_torch.graphs.synthetic import (
     DATASET_PRESETS,
@@ -26,4 +27,5 @@ __all__ = [
     "make_graph_from_edges",
     "make_sbm",
     "sample_neighbors",
+    "subgraph",
 ]

@@ -5,7 +5,8 @@ encoding is CSR ``indptr``/``indices`` (O(N + E)) plus the padded neighbour
 lists ``nbr_idx``/``nbr_mask`` (N, B) that the layers and the CUDA kernel
 read. ``B`` is the padded max degree; self-loops are part of every
 neighbourhood. The lazily derived dense (N, N) view of the reference is not
-carried over: nothing on the serving path reads it.
+carried over: nothing in the port reads it. ``subgraph`` serves the
+federated partition's per-client extraction.
 """
 from __future__ import annotations
 
@@ -243,4 +244,27 @@ def sample_neighbors(
         g.features, g.labels, new_indptr, new_indices,
         g.train_mask, g.val_mask, g.test_mask, g.num_classes,
         pad_multiple, max_degree=max_degree,
+    )
+
+
+def subgraph(g: Graph, nodes, pad_multiple: int = 8) -> Graph:
+    """Induced subgraph over ``nodes`` (cross-boundary edges dropped),
+    CSR-based — O(E + |nodes|), no dense intermediates. The per-client
+    subgraph extraction of the federated partition builds on it."""
+    nodes = np.asarray(sorted(nodes), dtype=np.int64)
+    lookup = np.full(g.num_nodes, -1, dtype=np.int64)
+    lookup[nodes] = np.arange(len(nodes))
+    rows = np.repeat(np.arange(g.num_nodes, dtype=np.int64), g.degrees())
+    cols = g.indices.astype(np.int64)
+    keep = (lookup[rows] >= 0) & (lookup[cols] >= 0) & (rows < cols)
+    edges = np.stack([lookup[rows[keep]], lookup[cols[keep]]], axis=1)
+    return make_graph_from_edges(
+        g.features[nodes],
+        g.labels[nodes],
+        edges,
+        g.train_mask[nodes],
+        g.val_mask[nodes],
+        g.test_mask[nodes],
+        g.num_classes,
+        pad_multiple,
     )

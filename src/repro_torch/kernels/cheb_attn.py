@@ -1,18 +1,23 @@
-"""Fused polynomial-attention aggregation: the wrapper of the CUDA kernel.
+"""Fused polynomial-attention aggregation: the wrappers of the CUDA kernels.
 
 Replaces the Pallas TPU kernel ``repro/kernels/cheb_attn.py::cheb_attn``
-(``pallas_call`` at :146) with the hand-written Hopper kernel in
-``csrc/cheb_attn.cu``. The kernel is bound by memory (it reads the scores,
-the neighbour features and the mask once and writes the output once;
-~2.1 GB, ~0.63 ms at 3.35 TB/s for the sbm_1m serving shape). Its design:
-one block per node tile x feature tile with every head inside the block,
-so each neighbour-feature tile is read from device memory once for all
-heads; the polynomial weights and denominators of the tile live in shared
-memory.
+(``pallas_call`` at :146) and the backward of its differentiable entry
+``cheb_attn_diff`` (:161, backward at :189) with the hand-written Hopper
+kernels in ``csrc/cheb_attn.cu``. The forward kernel is bound by memory
+(it reads the scores, the neighbour features and the mask once and writes
+the output once; ~2.1 GB, ~0.63 ms at 3.35 TB/s for the sbm_1m serving
+shape). Its design: one block per node tile x feature tile with every
+head inside the block, so each neighbour-feature tile is read from device
+memory once for all heads; the polynomial weights and denominators of the
+tile live in shared memory. The backward kernel keeps that layout and recomputes the weights,
+denominators and output instead of saving them (~2.6 GB, ~0.78 ms at the
+sbm_1m training shape when only ``dx`` is asked for).
 
-CPU tensors take the plain version (:func:`repro_torch.kernels.ref.cheb_attn_ref`);
-CUDA tensors launch the kernel or raise. There is no fallback between the two.
-``cheb_attn.launches`` counts kernel launches.
+:func:`cheb_attn` is a ``torch.autograd.Function``. CPU tensors take the
+plain versions (:func:`~repro_torch.kernels.ref.cheb_attn_ref` forward,
+:func:`~repro_torch.kernels.ref.cheb_attn_bwd_ref` backward); CUDA tensors
+launch the kernels or raise. There is no fallback between the two.
+``cheb_attn.launches`` and ``cheb_attn_backward.launches`` count launches.
 """
 from __future__ import annotations
 
@@ -20,12 +25,15 @@ import ctypes
 from typing import Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import cheb_attn_ref
+from repro_torch.kernels.ref import cheb_attn_bwd_ref, cheb_attn_ref
 
 MAX_COEFFS = 64                     # CHEB_MAX_COEFFS in csrc/cheb_attn.cu
 _THREADS = 256
+_BWD_THREADS = 256                  # BWD_THREADS in csrc/cheb_attn.cu
+_BWD_NODE_TILE_MAX = 32
 _SMEM_DEFAULT = 48 * 1024           # dynamic shared memory without opt-in
 _SMEM_MAX = 227 * 1024              # H100: most a block can opt in to
 
@@ -43,12 +51,24 @@ def _library() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_void_p,
         ]
         lib.cheb_attn_forward.restype = ctypes.c_int
+        lib.cheb_attn_backward.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_void_p,
+        ]
+        lib.cheb_attn_backward.restype = ctypes.c_int
+        lib.cheb_attn_bwd_threads.argtypes = []
+        lib.cheb_attn_bwd_threads.restype = ctypes.c_int
         lib.cheb_attn_error_string.argtypes = [ctypes.c_int]
         lib.cheb_attn_error_string.restype = ctypes.c_char_p
         lib.cheb_attn_max_coeffs.argtypes = []
         lib.cheb_attn_max_coeffs.restype = ctypes.c_int
         if lib.cheb_attn_max_coeffs() != MAX_COEFFS:
             raise RuntimeError("csrc/cheb_attn.cu and cheb_attn.py disagree on MAX_COEFFS")
+        if lib.cheb_attn_bwd_threads() != _BWD_THREADS:
+            raise RuntimeError("csrc/cheb_attn.cu and cheb_attn.py disagree on BWD_THREADS")
         _lib = lib
     return _lib
 
@@ -74,6 +94,29 @@ def launch_config(heads: int, b: int, d: int) -> Tuple[int, int, int]:
     return node_tile, d_tile, smem
 
 
+def backward_launch_config(heads: int, b: int, d: int) -> Tuple[int, int, int]:
+    """``(node_tile, group, smem_bytes)`` for one backward launch.
+
+    ``group`` is the lanes that share one (node, neighbour) pair's D-sum:
+    the next power of two >= D, at most 32. ``node_tile`` is the most nodes
+    (at most 32) whose scores, weights, cotangents of e, out and dout fit
+    the default 48 KB of shared memory. The size formula matches the
+    shared-memory layout of ``cheb_attn_bwd_kernel`` in ``csrc/cheb_attn.cu``.
+    """
+    group = min(32, 1 << max(d - 1, 0).bit_length())
+    bp = b | 1
+    fixed = 4 * MAX_COEFFS * (1 + _BWD_THREADS // 32)      # coeffs + warp sums
+    per_node = 4 * (heads + bp + 3 * heads * bp + 2 * heads * d)
+    node_tile = max(1, min(_BWD_NODE_TILE_MAX, (_SMEM_DEFAULT - fixed) // per_node))
+    smem = fixed + node_tile * per_node
+    if smem > _SMEM_MAX:
+        raise ValueError(
+            f"cheb_attn backward: H={heads}, B={b}, D={d} needs {smem} bytes of "
+            f"shared memory for one node, above the {_SMEM_MAX} a block can have"
+        )
+    return node_tile, group, smem
+
+
 def _batched(x, h_nb, mask):
     """Views of the three layouts as (G, H, N, B), (G, N, B, D), (G, N, B),
     checking that the shapes agree."""
@@ -92,28 +135,39 @@ def _batched(x, h_nb, mask):
     return x, h_nb, mask
 
 
-def _launch(x, h_nb, mask, coeffs):
-    lib = _library()
-    out_shape = x.shape[:-1] + h_nb.shape[-1:]
-    x4, h4, m4 = _batched(x, h_nb, mask)
-    tensors = {"x": x4, "h_nb": h4, "mask": m4, "coeffs": coeffs}
+def _check(what, x, tensors):
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != x.device:
-            raise ValueError(f"cheb_attn: {name} is on {t.device}, x on {x.device}; "
+            raise ValueError(f"{what}: {name} is on {t.device}, x on {x.device}; "
                              "all inputs must be on one CUDA device")
         if t.dtype != torch.float32:
-            raise TypeError(f"cheb_attn: {name} must be float32, got {t.dtype}")
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"cheb_attn: {name} must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
-        raise NotImplementedError(
-            "cheb_attn on CUDA has no backward kernel yet; call it under "
-            "torch.no_grad() or torch.inference_mode()"
-        )
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _check_coeffs(coeffs):
     p = coeffs.numel()
     if coeffs.dim() != 1 or not 1 <= p <= MAX_COEFFS:
         raise ValueError(f"cheb_attn: coeffs must be 1-D with 1..{MAX_COEFFS} "
                          f"entries, got shape {tuple(coeffs.shape)}")
+    return p
+
+
+def _raise_on(rc, lib, what):
+    if rc != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: CUDA error {rc} "
+            f"({lib.cheb_attn_error_string(rc).decode()})"
+        )
+
+
+def _launch(x, h_nb, mask, coeffs):
+    lib = _library()
+    out_shape = x.shape[:-1] + h_nb.shape[-1:]
+    x4, h4, m4 = _batched(x, h_nb, mask)
+    _check("cheb_attn", x, {"x": x4, "h_nb": h4, "mask": m4, "coeffs": coeffs})
+    p = _check_coeffs(coeffs)
     g, heads, n, b = x4.shape
     d = h4.shape[-1]
     out = torch.empty((g, heads, n, d), dtype=torch.float32, device=x.device)
@@ -126,28 +180,92 @@ def _launch(x, h_nb, mask, coeffs):
             x4.data_ptr(), h4.data_ptr(), m4.data_ptr(), coeffs.data_ptr(),
             out.data_ptr(), g, heads, n, b, d, p, node_tile, d_tile, smem, stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"cheb_attn kernel launch failed: CUDA error {rc} "
-            f"({lib.cheb_attn_error_string(rc).decode()})"
-        )
+    _raise_on(rc, lib, "cheb_attn")
     cheb_attn.launches += 1
     return out.reshape(out_shape)
+
+
+def _launch_backward(x, h_nb, mask, coeffs, dout, needs):
+    lib = _library()
+    x4, h4, m4 = _batched(x, h_nb, mask)
+    g, heads, n, b = x4.shape
+    d = h4.shape[-1]
+    if tuple(dout.shape) != tuple(x.shape[:-1] + h_nb.shape[-1:]):
+        raise ValueError(f"cheb_attn backward: dout has shape {tuple(dout.shape)}, "
+                         f"the forward's output {tuple(x.shape[:-1] + h_nb.shape[-1:])}")
+    d4 = dout.reshape(g, heads, n, d)
+    _check("cheb_attn backward", x,
+           {"x": x4, "h_nb": h4, "mask": m4, "coeffs": coeffs, "dout": d4})
+    p = _check_coeffs(coeffs)
+    node_tile, group, smem = backward_launch_config(heads, b, d)
+    tiles = -(-n // node_tile)
+
+    def empty(shape, want):
+        return torch.zeros(shape, dtype=torch.float32, device=x.device) if want else None
+
+    dx, dh, dm = empty(x4.shape, needs[0]), empty(h4.shape, needs[1]), empty(m4.shape, needs[2])
+    dq_part = empty((g * tiles, p), needs[3])
+    if x4.numel() and any(needs):
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = lib.cheb_attn_backward(
+                x4.data_ptr(), h4.data_ptr(), m4.data_ptr(), coeffs.data_ptr(), d4.data_ptr(),
+                *(t.data_ptr() if t is not None else None for t in (dx, dh, dm, dq_part)),
+                g, heads, n, b, d, p, node_tile, group, smem, stream,
+            )
+        _raise_on(rc, lib, "cheb_attn backward")
+        cheb_attn_backward.launches += 1
+    return (
+        None if dx is None else dx.reshape(x.shape),
+        None if dh is None else dh.reshape(h_nb.shape),
+        None if dm is None else dm.reshape(mask.shape),
+        None if dq_part is None else dq_part.sum(0),
+    )
+
+
+def cheb_attn_backward(x, h_nb, mask, coeffs, dout, needs=(True, True, True, True)):
+    """Cotangents ``(dx, dh_nb, dmask, dcoeffs)`` of :func:`cheb_attn` given
+    ``dout``; those with a false entry in ``needs`` are ``None`` and are not
+    computed (the kernel takes null pointers for them). CPU tensors take
+    :func:`~repro_torch.kernels.ref.cheb_attn_bwd_ref`; CUDA tensors launch
+    the backward kernel or raise. ``dcoeffs`` sums per-block partials in a
+    second pass, so it does not depend on the order blocks run in."""
+    if x.device.type == "cpu":
+        return cheb_attn_bwd_ref(x, h_nb, mask, coeffs, dout, needs)
+    return _launch_backward(x, h_nb, mask, coeffs, dout.contiguous(), needs)
+
+
+class _ChebAttn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, h_nb, mask, coeffs):
+        ctx.save_for_backward(x, h_nb, mask, coeffs)
+        if x.device.type == "cpu":
+            return cheb_attn_ref(x, h_nb, mask, coeffs)
+        return _launch(x, h_nb, mask, coeffs)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        return cheb_attn_backward(*ctx.saved_tensors, dout, ctx.needs_input_grad)
 
 
 def cheb_attn(
     x: torch.Tensor, h_nb: torch.Tensor, mask: torch.Tensor, coeffs: torch.Tensor
 ) -> torch.Tensor:
     """Fused polynomial-attention aggregation; layouts as
-    :func:`~repro_torch.kernels.ref.cheb_attn_ref`.
+    :func:`~repro_torch.kernels.ref.cheb_attn_ref`. Differentiable in all
+    four inputs, once: the backward is :func:`cheb_attn_backward` (a kernel
+    on CUDA), marked ``once_differentiable`` because nothing in the repo
+    takes a second derivative, although the reference's backward could be
+    differentiated again.
 
     On CUDA every input is float32 and contiguous, ``mask`` included, and
     ``coeffs`` has at most ``MAX_COEFFS`` entries; any N, B, D and H are
-    taken. Rows whose denominator is exactly zero return exact zeros.
+    taken. Rows whose denominator is exactly zero return exact zeros, and
+    their cotangents are exact zeros.
     """
-    if x.device.type == "cpu":
-        return cheb_attn_ref(x, h_nb, mask, coeffs)
-    return _launch(x, h_nb, mask, coeffs)
+    return _ChebAttn.apply(x, h_nb, mask, torch.as_tensor(coeffs, device=x.device))
 
 
 cheb_attn.launches = 0
+cheb_attn_backward.launches = 0

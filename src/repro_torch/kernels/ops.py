@@ -29,6 +29,8 @@ def cheb_attn_layer(
     """FedGAT layer 1 via the fused kernel: all heads aggregate in one
     launch, then the output projection W — numerically the direct engine.
     Isolated nodes come out as exact zeros before the projection.
+    Differentiable: the scores carry the parameters' gradient into
+    ``cheb_attn``'s backward kernel (and ``h`` its own, when it needs one).
     ``domain`` is unused by the monomial basis and kept for the engine
     interface."""
     if basis != "power":

@@ -1,13 +1,17 @@
 """Serving launcher for the port: federated graph inference on the GPU.
 
     python -m repro_torch.launch.serve --mode graph --ckpt BUNDLE_DIR --engine kernel
+    python -m repro_torch.launch.serve --mode graph --clients 4 --rounds 20
 
-Loads a bundle written by the reference's ``save_bundle``, serves a seeded
-Poisson query stream through the microbatching scheduler, absorbs a graph
-delta and reports latency and cache accounting. ``--ckpt`` is required
-(quick-training a bundle waits for the trainer's port), and ``--mode lm``
-waits for the language-model zoo. ``--device cpu`` serves through the
-plain PyTorch versions; the default is the CUDA device.
+Loads a serving bundle (written by either package's ``save_bundle``) or,
+without ``--ckpt``, quick-trains one with the port's federated Trainer;
+then serves a seeded Poisson query stream through the microbatching
+scheduler, absorbs a graph delta and reports latency and cache accounting.
+The reference quick-trains ``FedGATConfig()``, whose ``matrix`` engine the
+port does not have yet, so the port trains through ``--engine`` (default
+``kernel``). ``--mode lm`` waits for the language-model zoo. ``--device
+cpu`` trains and serves through the plain PyTorch versions; the default is
+the CUDA device.
 """
 from __future__ import annotations
 
@@ -23,11 +27,18 @@ def run_graph(argv=None) -> None:
     )
     ap.add_argument("--dataset", default="cora_like",
                     help="make_cora_like or make_sbm preset")
-    ap.add_argument("--ckpt", required=True, help="serving bundle directory")
-    ap.add_argument("--method", default="fedgat", choices=["fedgat"])
+    ap.add_argument("--ckpt", default="",
+                    help="serving bundle directory (default: quick-train one)")
+    ap.add_argument("--method", default="fedgat", choices=["fedgat"],
+                    help="the port serves fedgat only; distgat waits for its serving slice")
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--rounds", type=int, default=20,
+                    help="quick-train rounds (without --ckpt)")
     ap.add_argument("--engine", default=None,
                     choices=["direct", "kernel", "exact"],
-                    help="serving engine override (default: checkpoint's)")
+                    help="serving engine override (default: the checkpoint's); "
+                    "without --ckpt also the quick-train engine (default: kernel, "
+                    "as the port has no matrix engine yet)")
     ap.add_argument("--queries", type=int, default=256)
     ap.add_argument("--qps", type=float, default=2000.0,
                     help="mean arrival rate of the synthetic query stream")
@@ -42,6 +53,8 @@ def run_graph(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.fast:
         args.dataset = "tiny"
+        args.clients = min(args.clients, 2)
+        args.rounds = min(args.rounds, 2)
         args.queries = min(args.queries, 48)
         args.update_nodes = min(args.update_nodes, 4)
 
@@ -50,8 +63,27 @@ def run_graph(argv=None) -> None:
 
     make = make_sbm if args.dataset in SBM_PRESETS else make_cora_like
     g = make(args.dataset, seed=args.seed)
+    ckpt_dir = args.ckpt
+    if not ckpt_dir:
+        import tempfile
+
+        from repro_torch.core import FedGATConfig
+        from repro_torch.federated import FederatedConfig, Trainer
+        from repro_torch.serving import save_bundle
+
+        cfg = FederatedConfig(
+            method=args.method, num_clients=args.clients, rounds=args.rounds,
+            seed=args.seed, model=FedGATConfig(engine=args.engine or "kernel"),
+        )
+        t0 = time.time()
+        res = Trainer(cfg, device=args.device).run(g)
+        print(f"trained: method={args.method} engine={cfg.model.engine} "
+              f"rounds={args.rounds} best_test={res['best_test']:.4f} "
+              f"in {time.time() - t0:.1f}s")
+        ckpt_dir = tempfile.mkdtemp(prefix="fedgat_serve_")
+        save_bundle(ckpt_dir, res["params"], cfg, step=args.rounds)
     server = GraphInferenceServer.from_checkpoint(
-        args.ckpt, g, engine=args.engine, method=args.method, device=args.device,
+        ckpt_dir, g, engine=args.engine, method=args.method, device=args.device,
     )
     print(f"serving: engine={server.cfg.engine} method={server.method} "
           f"clients={server.num_clients} nodes={g.num_nodes} device={server.device}")

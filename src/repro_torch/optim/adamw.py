@@ -1,0 +1,57 @@
+"""Adam/AdamW on parameter trees (nested lists/dicts of tensors).
+
+The port of ``repro/optim/adamw.py::adam_init``/``adam_update`` in the
+reference's exact form ``p - lr * (mhat / (sqrt(vhat) + eps) + wd * p)``,
+with an int32 step count cast to float32 for the bias corrections.
+``sgd_update`` and ``clip_by_global_norm`` wait for the LM slice.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Tuple
+
+import torch
+
+from repro_torch._tree import tree_leaves, tree_map
+
+Tree = Any
+
+
+class AdamState(NamedTuple):
+    step: torch.Tensor      # int32 scalar (a leading client axis in a bank)
+    mu: Tree
+    nu: Tree
+
+
+def adam_init(params: Tree) -> AdamState:
+    device = tree_leaves(params)[0].device
+    return AdamState(
+        step=torch.zeros((), dtype=torch.int32, device=device),
+        mu=tree_map(torch.zeros_like, params),
+        nu=tree_map(torch.zeros_like, params),
+    )
+
+
+@torch.no_grad()
+def adam_update(
+    grads: Tree,
+    state: AdamState,
+    params: Tree,
+    lr: float,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+) -> Tuple[Tree, AdamState]:
+    step = state.step + 1
+    t = step.to(torch.float32)
+    mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
+    nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, grads)
+    bc1 = 1 - b1 ** t
+    bc2 = 1 - b2 ** t
+
+    def upd(p, m, v):
+        mhat = m / bc1
+        vhat = v / bc2
+        return p - lr * (mhat / (torch.sqrt(vhat) + eps) + weight_decay * p)
+
+    return tree_map(upd, params, mu, nu), AdamState(step=step, mu=mu, nu=nu)

@@ -10,7 +10,7 @@
   and throughput accounting.
 """
 from repro_torch.serving.cache import PackCache, PackEntry, graph_fingerprint
-from repro_torch.serving.checkpoint import ServingCheckpoint, load_bundle
+from repro_torch.serving.checkpoint import ServingCheckpoint, load_bundle, save_bundle
 from repro_torch.serving.scheduler import LatencyStats, MicroBatcher
 from repro_torch.serving.server import (
     GraphInferenceServer,
@@ -34,4 +34,5 @@ __all__ = [
     "client_pack_key",
     "graph_fingerprint",
     "load_bundle",
+    "save_bundle",
 ]

@@ -1,23 +1,26 @@
-"""Load serving bundles written by the reference (``repro.serving.save_bundle``).
+"""Serving bundles in the reference's format (``repro/serving/checkpoint.py``).
 
 A bundle is a directory holding ``params.npz`` (keys ``params/<layer>/<W|a1|a2>``
 plus ``__step__``) and ``meta.json`` (the effective ``FedGATConfig`` under
-``"model"``, the privacy config under ``"privacy"``, method, num_clients,
-seed and step). The parameter structure is built from ``meta["model"]`` and
-the serving graph's dimensions, and every stored array is checked against
-it. ``meta["privacy"]`` stays a plain dict until privacy is ported; writing
-bundles waits for the trainer.
+``"model"``, the privacy config under ``"privacy"``, method, backend,
+num_clients, beta, seed and step). :func:`save_bundle` writes one from a
+Trainer run, readable by both packages' ``load_bundle``; its ``manifest``
+is ``null`` until the port has run manifests. :func:`load_bundle` builds
+the parameter structure from ``meta["model"]`` and the serving graph's
+dimensions and checks every stored array against it; ``meta["privacy"]``
+stays a plain dict until privacy mechanisms are ported.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 from torch import nn
 
 from repro_torch._device import DeviceLike
-from repro_torch.checkpoint.ckpt import load_checkpoint
+from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
 from repro_torch.core.fedgat_model import FedGATConfig, layer_shapes, params_from_numpy
 
 PARAMS_NAME = "params.npz"
@@ -30,6 +33,42 @@ class ServingCheckpoint(NamedTuple):
     model: FedGATConfig
     privacy: Dict[str, Any]
     meta: Dict[str, Any]
+
+
+def save_bundle(
+    path: str,
+    params: Any,
+    fed_cfg: Any,
+    *,
+    step: int = 0,
+    extra: Optional[Dict[str, Any]] = None,
+) -> pathlib.Path:
+    """Write a serving bundle for a Trainer run. ``fed_cfg`` is the
+    :class:`~repro_torch.federated.trainer.FederatedConfig` the run trained
+    under; the stored model config is the effective one
+    (``method_model_config``), so a DistGAT bundle records the engine it
+    used."""
+    from repro_torch.federated.trainer import method_model_config
+
+    p = pathlib.Path(path)
+    p.mkdir(parents=True, exist_ok=True)
+    save_checkpoint(str(p / PARAMS_NAME), {"params": params}, step=step)
+    meta = {
+        "format": BUNDLE_FORMAT,
+        "method": fed_cfg.method,
+        "backend": fed_cfg.backend,
+        "num_clients": int(fed_cfg.num_clients),
+        "beta": float(fed_cfg.beta),
+        "seed": int(fed_cfg.seed),
+        "step": int(step),
+        "model": dataclasses.asdict(method_model_config(fed_cfg)),
+        "privacy": dataclasses.asdict(fed_cfg.privacy),
+        "manifest": None,
+    }
+    if extra:
+        meta.update(extra)
+    (p / META_NAME).write_text(json.dumps(meta, indent=1, sort_keys=True))
+    return p
 
 
 def load_bundle(path: str, graph: Any, *, device: DeviceLike = None) -> ServingCheckpoint:

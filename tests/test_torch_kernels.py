@@ -1,9 +1,11 @@
-"""repro_torch's cheb_attn against the JAX package.
+"""repro_torch's cheb_attn and its gradients against the JAX package.
 
-On the CPU the wrapper runs its plain version; the JAX side runs its Pallas
-kernel in interpret mode and its jnp oracle. The CUDA kernel itself is held
-against the plain version by ``chip_smoke.py`` and by
-``tests/test_torch_cuda.py``, which skips without a card.
+On the CPU the wrapper runs its plain versions (forward and backward); the
+JAX side runs its Pallas kernel in interpret mode, its jnp oracle, and
+``jax.vjp`` of its differentiable entry ``cheb_attn_diff``. The CUDA
+kernels themselves are held against the plain versions by
+``chip_smoke.py`` and by ``tests/test_torch_cuda.py``, which skips without
+a card.
 """
 import numpy as np
 import pytest
@@ -11,17 +13,30 @@ import torch
 
 import jax.numpy as jnp
 
+import jax
+
 from repro.core.chebyshev import attention_series
 from repro.kernels import ref as jref
 from repro.kernels.cheb_attn import cheb_attn as jax_cheb_attn
+from repro.kernels.cheb_attn import cheb_attn_diff as jax_cheb_attn_diff
+from repro_torch.core import FedGATConfig, get_engine, init_params, layered_forward
+from repro_torch.graphs import make_cora_like
 from repro_torch.kernels import _build
 from repro_torch.kernels import cheb_attn as cheb_mod
-from repro_torch.kernels.cheb_attn import MAX_COEFFS, cheb_attn, launch_config
+from repro_torch.kernels.cheb_attn import (
+    MAX_COEFFS,
+    backward_launch_config,
+    cheb_attn,
+    cheb_attn_backward,
+    launch_config,
+)
+from repro_torch.kernels.ref import cheb_attn_bwd_ref, cheb_attn_ref
 
 torch.set_num_threads(1)
 
 ATT16 = attention_series(16, (-4.0, 4.0)).astype(np.float32)
 RTOL, ATOL = 1e-4, 5e-5          # tests/test_kernel_engine.py:149
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4  # tests/test_kernel_engine.py:275-276
 
 
 def _inputs(layout, seed=0, n=32, b=8, d=24, heads=3, graphs=2):
@@ -141,3 +156,143 @@ def test_build_raises_without_nvcc(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["cheb_attn"])
     assert _build.kernel_names() == ["cheb_attn"]
+
+
+# ---------------------------------------------------------------------------
+# Gradients
+# ---------------------------------------------------------------------------
+
+def _grad_inputs(layout, case):
+    x, h, m = _inputs(layout, seed=7)
+    if case == "negative":
+        x[..., 7, :] = -6.0                     # series < 0: negative denominator
+        m[..., 7, :] = 1.0
+    else:                                       # a masked infinite score
+        x[..., 4, 3] = np.inf
+        m[..., 4, 3] = 0.0
+    dout = np.random.default_rng(8).standard_normal(x.shape[:-1] + h.shape[-1:]).astype(np.float32)
+    return x, h, m, dout
+
+
+def _jax_vjp(x, h, m, dout):
+    def vjp(x, h, m, dout):
+        out, f = jax.vjp(lambda *a: jax_cheb_attn_diff(*a, 16, 8, True),
+                         jnp.asarray(x), jnp.asarray(h), jnp.asarray(m), jnp.asarray(ATT16))
+        return [np.asarray(c) for c in f(jnp.asarray(dout))]
+
+    if x.ndim < 4:
+        return vjp(x, h, m, dout)
+    per_graph = [vjp(*a) for a in zip(x, h, m, dout)]   # the diff entry takes one graph
+    dx, dh, dm = (np.stack([c[i] for c in per_graph]) for i in range(3))
+    return [dx, dh, dm, sum(c[3] for c in per_graph)]
+
+
+def _port_grads(x, h, m, dout):
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, h, m, ATT16)]
+    out = cheb_attn(*leaves)
+    return [g.numpy() for g in torch.autograd.grad(out, leaves, torch.from_numpy(dout))]
+
+
+@pytest.mark.parametrize("case", ["negative", "nan"])
+@pytest.mark.parametrize("layout", ["2d", "3d", "4d"])
+def test_cheb_attn_gradients_match_jax_vjp_of_cheb_attn_diff(layout, case):
+    """All four cotangents against the reference's training entry, with an
+    isolated row (exact zeros), a negative-denominator row, and a masked
+    infinite score (NaN, as the JAX vjp gives: inf * 0)."""
+    x, h, m, dout = _grad_inputs(layout, case)
+    got, want = _port_grads(x, h, m, dout), _jax_vjp(x, h, m, dout)
+    for name, a, b in zip(("dx", "dh_nb", "dmask", "dcoeffs"), got, want):
+        assert a.shape == b.shape, name
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=name)
+        np.testing.assert_allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=name)
+    node_axis = {"dx": -2, "dh_nb": -3, "dmask": -2}
+    for name, a in zip(node_axis, got):
+        assert (np.take(a, 5, axis=node_axis[name]) == 0.0).all(), name   # isolated row
+    if case == "nan":
+        assert np.isnan(got[0][..., 4, :]).all() and np.isnan(got[3]).all()
+        assert np.isfinite(np.delete(got[0], 4, axis=-2)).all()
+    else:
+        assert np.isfinite(got[3]).all() and (got[0][..., 7, :] != 0).any()
+
+
+@pytest.mark.parametrize("layout", ["2d", "3d", "4d"])
+def test_plain_backward_matches_autograd_through_the_plain_forward(layout):
+    x, h, m, dout = _grad_inputs(layout, "negative")
+    leaves = [torch.from_numpy(a).double().requires_grad_() for a in (x, h, m, ATT16)]
+    want = torch.autograd.grad(cheb_attn_ref(*leaves), leaves, torch.from_numpy(dout).double())
+    got = cheb_attn_bwd_ref(*(t.detach() for t in leaves), torch.from_numpy(dout).double())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+    only_dx = cheb_attn_bwd_ref(*(t.detach() for t in leaves), torch.from_numpy(dout).double(),
+                                (True, False, False, False))
+    assert only_dx[1:] == (None, None, None)
+    torch.testing.assert_close(only_dx[0], want[0], rtol=1e-9, atol=1e-9)
+
+
+def test_gradients_flow_only_to_inputs_that_need_them():
+    x, h, m, dout = _grad_inputs("3d", "negative")
+    xt = torch.from_numpy(x).requires_grad_()
+    out = cheb_attn(xt, torch.from_numpy(h), torch.from_numpy(m), torch.from_numpy(ATT16))
+    (gx,) = torch.autograd.grad(out, xt, torch.from_numpy(dout))
+    np.testing.assert_allclose(gx.numpy(), _jax_vjp(x, h, m, dout)[0], rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def test_kernel_engine_gradients_match_the_direct_engine_with_features_needing_grad():
+    """A 3-layer model whose input features need a gradient: the kernel
+    engine's layer 1 then asks the Function for d h_nb as well as dx."""
+    g = make_cora_like("tiny", seed=0)
+    cfg = FedGATConfig(num_layers=3, degree=10)
+    params = init_params(torch.Generator().manual_seed(2), g.feature_dim, g.num_classes, cfg,
+                         device="cpu")
+    coeffs = torch.tensor(cfg.coeffs(), dtype=torch.float32)
+    idx, mask = torch.tensor(g.nbr_idx).long(), torch.tensor(g.nbr_mask)
+
+    def grads(engine):
+        h = torch.tensor(g.features).requires_grad_()
+        out = layered_forward(get_engine(engine)(cfg), params, coeffs, None, h, idx, mask)
+        leaves = [h, *params.parameters()]
+        return torch.autograd.grad((out ** 2).sum(), leaves)
+
+    for a, b in zip(grads("kernel"), grads("direct")):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=5e-3, atol=5e-4)
+
+
+@pytest.mark.parametrize("heads,b,d", [(8, 16, 16), (8, 24, 48), (1, 8, 1), (3, 5, 300), (16, 64, 128)])
+def test_backward_launch_config_fits_the_block(heads, b, d):
+    node_tile, group, smem = backward_launch_config(heads, b, d)
+    assert 1 <= node_tile <= 32
+    assert group & (group - 1) == 0 and min(d, 32) <= group <= 32
+    per_node = 4 * (heads + (b | 1) + 3 * heads * (b | 1) + 2 * heads * d)
+    assert smem == 4 * MAX_COEFFS * 9 + node_tile * per_node
+    assert smem <= 48 * 1024 or node_tile == 1
+
+
+def test_backward_launch_config_rejects_oversized_rows():
+    with pytest.raises(ValueError, match="shared memory"):
+        backward_launch_config(64, 1024, 16)
+
+
+def test_backward_raises_when_the_library_cannot_load(monkeypatch):
+    def no_library(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(cheb_mod, "_lib", None)
+    monkeypatch.setattr(_build, "load_library", no_library)
+    x, h, m, dout = _grad_inputs("3d", "negative")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cheb_attn_backward(*_meta(x, h, m, ATT16, dout))
+
+
+def test_non_cuda_device_is_refused_by_the_backward_wrapper(monkeypatch):
+    monkeypatch.setattr(cheb_mod, "_lib", object())
+    before = cheb_attn_backward.launches
+    x, h, m, dout = _grad_inputs("3d", "negative")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        cheb_attn_backward(*_meta(x, h, m, ATT16, dout))
+    assert cheb_attn_backward.launches == before
+
+
+def test_cpu_gradients_launch_no_kernel():
+    before = (cheb_attn.launches, cheb_attn_backward.launches)
+    _port_grads(*_grad_inputs("2d", "negative"))
+    assert (cheb_attn.launches, cheb_attn_backward.launches) == before
