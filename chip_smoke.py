@@ -29,10 +29,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    forward launches, finite params. Then the device times of one local
    step and its parts, and the same config on ``tiny`` on the card against
    the CPU (curves to 1e-6, params to rtol 1e-3 / atol 1e-4).
+5. Kernel API: ``repro_torch.kernels``' ``flash_attn`` (causal, bf16 and
+   f32) and ``poly_attn`` (the zoo's ``chebyshev`` variant: degree 8,
+   domain 4, f32 and bf16, and negated coefficients for negative
+   denominators) at ``yi-6b``'s attention widths (B2 H32 S4096 hd128),
+   ``wkv_chunked`` at ``rwkv6-1.6b``'s (BH 8x32, S4096, hd64, chunk 16),
+   and ``ops.cheb_attn_layer_bucketed`` on ``sbm_1m`` with phase 3's
+   weights. Counts zeroed just before and read just after, held exactly;
+   each output against its plain version (wkv also against the scan
+   oracle, the bucketed layer against the flat one) at the reference
+   tests' tolerances; each kernel timed beside its plain version, its bound
+   and, for flash, ``scaled_dot_product_attention``.
 
 The second-to-last line is a JSON object describing each kernel
-(``launches``: the forward's over the serving and training phases, the
-backward's over the training phase); the last line is ``{"ok": true,
+(``launches``: cheb_attn's over the serving, training and kernel-API
+phases, the backward's over the training phase, the sequence kernels' over
+the kernel-API phase); the last line is ``{"ok": true,
 "device": {...}}``. Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -58,6 +70,11 @@ GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
 F32_ULP = 2.0 ** -24         # unit roundoff of float32
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12     # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12    # H100 SXM, bf16 on the tensor cores, dense
+# The reference tests' tolerances for the sequence kernels (tests/test_kernels.py).
+FLASH_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (2e-2, 2e-2)}   # :10
+POLY_TOL = (5e-4, 5e-4)                                                    # :136
+WKV_TOL = (1e-4, 1e-4)                                                     # :208-209
 SEED = 0
 
 
@@ -261,6 +278,200 @@ def layer1_inputs(params, h, nbr_idx, nbr_mask):
     x = edge_scores(b1, b2, h, nbr_idx)
     mask_f = nbr_mask.to(h.dtype)
     return x, h[nbr_idx] * mask_f[..., None], mask_f
+
+
+def bound(nbytes, flops, peak):
+    """(bound ms, what sets it): the larger of bytes over HBM and flops over ``peak``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def causal_pairs(s, causal=True):
+    return s * (s + 1) // 2 if causal else s * s
+
+
+def flash_bound(q, causal=True):
+    """Each of q, k, v read once and out written once; the two products
+    (4 hd flops per allowed pair) at the tensor-core rate for bf16 and the
+    float32 rate for float32."""
+    bt, heads, s, hd = q.shape
+    flops = 4 * hd * bt * heads * causal_pairs(s, causal)
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    return bound(4 * q.numel() * q.element_size(), flops, peak)
+
+
+def poly_bound(q, p1, causal=True):
+    """q, k, v read once and out written once; per allowed pair the score's
+    add and clip (3), Horner (2 per coefficient), the denominator (1) and
+    e . v (2 hd); sq and sk (2 hd per row each) and the division. All in
+    float32, as the TPU kernel computes them."""
+    bt, heads, s, hd = q.shape
+    flops = (bt * heads * causal_pairs(s, causal) * (3 + 2 * p1 + 1 + 2 * hd)
+             + bt * heads * s * (4 * hd + hd))
+    return bound(4 * q.numel() * q.element_size(), flops, FP32_FLOPS_PER_S)
+
+
+def wkv_bound(r, c):
+    """r, k, v, w read once, y written once (float32), S0 read and S_final
+    written once; per chunk the decay terms (8 per channel and step), M
+    (2 hd per pair below the diagonal, hd on it), y (2C + 2hd per output)
+    and the state update (2C + 2 per entry), in float32."""
+    bh, s, hd = r.shape
+    nbytes = 4 * r.numel() * r.element_size() + 4 * r.numel() + 2 * 4 * bh * hd * hd + 4 * hd
+    per_chunk = (8 * c * hd + c * (c - 1) * hd + c * hd + c * hd * (2 * c + 2 * hd)
+                 + hd * hd * (2 * c + 2))
+    return bound(nbytes, bh * (s // c) * per_chunk, FP32_FLOPS_PER_S)
+
+
+def close(label, got, want, rtol, atol):
+    """max abs error of ``got`` against ``want`` (both as float32), failing
+    the run unless allclose at (rtol, atol)."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(got, want, rtol=rtol, atol=atol)
+    print(f"  {label}: max_abs_err={err:.3e} max|want|={float(want.abs().max()):.3e} "
+          f"allclose(rtol={rtol},atol={atol})={ok}", flush=True)
+    if not ok:
+        fail(f"{label}: kernel disagrees with its plain version")
+    return err
+
+
+def kernel_api_phase(dev, g, params, coeffs, h, nbr_idx, nbr_mask,
+                     shapes=((2, 32, 4096, 128), (8 * 32, 4096, 64)), seed=SEED):
+    """Phase 5: the kernel API at yi-6b's and rwkv6-1.6b's widths. Returns
+    {kernel name: its JSON entry without name/route/source/replaces} and
+    the cheb_attn launches of the bucketed layer."""
+    from repro_torch.core.chebyshev import attention_series
+    from repro_torch.kernels import flash_attn, ops, poly_attn, wkv_chunked
+    from repro_torch.kernels.cheb_attn import cheb_attn
+    from repro_torch.kernels.flash_attn import flash_attn_plain
+    from repro_torch.kernels.poly_attn import poly_attn_plain
+    from repro_torch.kernels.ref import poly_attn_ref, wkv_ref
+    from repro_torch.kernels.wkv_chunk import wkv_chunked_plain
+
+    (bt, heads, s, hd), (bh, s_w, hd_w) = shapes
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    q, k, v = randn(bt, heads, s, hd), randn(bt, heads, s, hd), randn(bt, heads, s, hd)
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    a1, a2 = randn(heads, hd) * hd**-0.5, randn(heads, hd) * hd**-0.5   # models/attention.py:52-53
+    att8 = torch.as_tensor(attention_series(8, (-4.0, 4.0)), dtype=torch.float32, device=dev)
+    r, kw, vw = randn(bh, s_w, hd_w), randn(bh, s_w, hd_w), randn(bh, s_w, hd_w)
+    w = torch.sigmoid(randn(bh, s_w, hd_w) + 1.0) * 0.99                 # tests/test_kernels.py:203
+    u = randn(hd_w) * 0.1
+    S0 = randn(bh, hd_w, hd_w) * 0.1
+    plan = ops.degree_bucket_plan(g.nbr_mask)
+    torch.cuda.synchronize()
+
+    counters = (flash_attn, poly_attn, wkv_chunked, cheb_attn)
+    for fn in counters:
+        fn.launches = 0
+    with torch.inference_mode():
+        out = {
+            "flash bf16": flash_attn(qb, kb, vb, causal=True),
+            "flash f32": flash_attn(q, k, v, causal=True),
+            "poly f32": poly_attn(q, k, v, a1, a2, att8, causal=True),
+            "poly bf16": poly_attn(qb, kb, vb, a1, a2, att8, causal=True),
+            "poly f32 negated": poly_attn(q, k, v, a1, a2, -att8, causal=True),
+            "wkv": wkv_chunked(r, kw, vw, w, u, S0, chunk=16),
+            "bucketed": ops.cheb_attn_layer_bucketed(params, coeffs, h, g.nbr_idx, g.nbr_mask,
+                                                     plan=plan),
+        }
+    torch.cuda.synchronize()
+    got = {fn.__name__: fn.launches for fn in counters}
+    want = {"flash_attn": 2, "poly_attn": 3, "wkv_chunked": 1, "cheb_attn": len(plan)}
+    print(f"kernel API sbm_1m/yi-6b/rwkv6-1.6b: launches {got} (want {want}); "
+          f"bucket plan {[(len(rows), cap) for rows, cap in plan]}", flush=True)
+    if got != want:
+        fail("the kernel-API phase's launch counts differ from its calls")
+
+    errs = {"flash_attn": [], "poly_attn": [], "wkv_chunked": []}
+    with torch.inference_mode():
+        for label, (qq, kk, vv) in (("flash bf16", (qb, kb, vb)), ("flash f32", (q, k, v))):
+            errs["flash_attn"].append(close(label, out.pop(label), flash_attn_plain(
+                qq, kk, vv, causal=True), *FLASH_TOL[qq.dtype]))
+        errs["poly_attn"].append(close("poly f32", out.pop("poly f32"), poly_attn_plain(
+            q, k, v, a1, a2, att8), *POLY_TOL))
+        # bf16 output rounds to 2^-8 relative: the reference's bf16 tolerance.
+        errs["poly_attn"].append(close("poly bf16", out.pop("poly bf16"), poly_attn_plain(
+            qb, kb, vb, a1, a2, att8), *FLASH_TOL[torch.bfloat16]))
+        # The oracle's max(den, 1e-9) guard keeps den's sign: with v = 1 its
+        # output is den / max(den, 1e-9), negative exactly where den is.
+        den = poly_attn_ref(q[:1, :1], k[:1, :1], a1[:1], a2[:1],
+                            torch.ones_like(v[:1, :1]), -att8)
+        print(f"  poly f32 negated: {int((den < 0).sum())} of {den.numel()} outputs of (b0, h0) "
+              "have a negative denominator", flush=True)
+        if not bool((den < 0).any()):
+            fail("the negated series gave no negative denominator")
+        errs["poly_attn"].append(close("poly f32 negated", out.pop("poly f32 negated"),
+                                       poly_attn_plain(q, k, v, a1, a2, -att8), *POLY_TOL))
+        y, sf = out.pop("wkv")
+        py, psf = wkv_chunked_plain(r, kw, vw, w, u, S0, chunk=16)
+        errs["wkv_chunked"] += [close("wkv y", y, py, *WKV_TOL), close("wkv S_final", sf, psf,
+                                                                        *WKV_TOL)]
+        del py, psf
+        t0 = time.perf_counter()
+        ry, rsf = wkv_ref(r, kw, vw, w, u, S0)
+        scan_s = time.perf_counter() - t0
+        errs["wkv_chunked"] += [close("wkv y vs scan oracle", y, ry, *WKV_TOL),
+                                close("wkv S_final vs scan oracle", sf, rsf, *WKV_TOL)]
+        del ry, rsf, y, sf
+        from repro_torch.kernels.ops import cheb_attn_layer
+        flat = cheb_attn_layer(params, coeffs, h, nbr_idx, nbr_mask)
+        bucket_err = close("bucketed vs flat layer (sbm_1m)", out.pop("bucketed"), flat,
+                           1e-6, 1e-6)                          # tests/test_bucketed_kernel.py:67
+        del flat
+    torch.cuda.empty_cache()
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    with torch.inference_mode():
+        for label, (qq, kk, vv) in (("bf16", (qb, kb, vb)), ("f32", (q, k, v))):
+            rows[f"flash_attn {label}"] = dict(
+                ms=cuda_ms(lambda: flash_attn(qq, kk, vv, causal=True)),
+                plain_ms=cuda_ms(lambda: flash_attn_plain(qq, kk, vv, causal=True),
+                                 reps=5, warmup=1),
+                library_ms=cuda_ms(lambda: sdpa(qq, kk, vv, is_causal=True)),
+                bound=flash_bound(qq))
+        for label, (qq, kk, vv) in (("f32", (q, k, v)), ("bf16", (qb, kb, vb))):
+            rows[f"poly_attn {label}"] = dict(
+                ms=cuda_ms(lambda: poly_attn(qq, kk, vv, a1, a2, att8, causal=True)),
+                plain_ms=cuda_ms(lambda: poly_attn_plain(qq, kk, vv, a1, a2, att8),
+                                 reps=5, warmup=1),
+                library_ms=None, bound=poly_bound(qq, att8.numel()))
+        rows["wkv_chunked f32"] = dict(
+            ms=cuda_ms(lambda: wkv_chunked(r, kw, vw, w, u, S0, chunk=16)),
+            plain_ms=cuda_ms(lambda: wkv_chunked_plain(r, kw, vw, w, u, S0, chunk=16),
+                             reps=5, warmup=1),
+            library_ms=None, bound=wkv_bound(r, 16))
+        ms_bucketed = cuda_ms(lambda: ops.cheb_attn_layer_bucketed(
+            params, coeffs, h, g.nbr_idx, g.nbr_mask, plan=plan), reps=5)
+        ms_flat = cuda_ms(lambda: cheb_attn_layer(params, coeffs, h, nbr_idx, nbr_mask), reps=5)
+    smi = nvidia_smi()
+    for name, row in rows.items():
+        (bms, by) = row["bound"]
+        lib = ("none" if row["library_ms"] is None
+               else f"scaled_dot_product_attention {row['library_ms']:.4f} ms")
+        print(f"{name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}), library {lib}; {smi}", flush=True)
+    print(f"wkv scan oracle (wkv_ref, {s_w} Python steps): {scan_s:.2f} s wall; "
+          f"sbm_1m layer 1: bucketed {ms_bucketed:.3f} ms, flat {ms_flat:.3f} ms; {smi}",
+          flush=True)
+    del q, k, v, qb, kb, vb, r, kw, vw, w, S0, out
+    torch.cuda.empty_cache()
+
+    def entry(name, row):
+        bms, by = row["bound"]
+        return {"launches": got[name], "max_abs_err": max(errs[name]), "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": bms, "bound_by": by,
+                "library_ms": row["library_ms"]}
+
+    return {"flash_attn": entry("flash_attn", rows["flash_attn bf16"]),
+            "poly_attn": entry("poly_attn", rows["poly_attn f32"]),
+            "wkv_chunked": entry("wkv_chunked", rows["wkv_chunked f32"])}, len(plan), bucket_err
 
 
 def main() -> None:
@@ -530,6 +741,14 @@ def main() -> None:
         fail(f"tiny: GPU and CPU serving disagree (max abs {np.abs(a - b).max():.3e})")
     print(f"tiny check: {len(qs)} answers on the card match the CPU plain path "
           f"(max abs {np.abs(a - b).max():.3e})")
+    del on_gpu, on_cpu, tparams
+
+    # -- phase 5: the kernel API at two zoo models' widths ----------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    api, bucket_launches, bucket_err = kernel_api_phase(
+        dev, g, params[0], coeffs, h, nbr_idx, nbr_mask)
+    print(f"kernel API phase: {time.perf_counter() - t0:.1f}s")
     print(f"total {time.perf_counter() - t_start:.1f}s")
 
     print(f"gpu: {nvidia_smi()}")
@@ -538,8 +757,8 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cheb_attn.cu",
         "replaces": "src/repro/kernels/cheb_attn.py:146",
-        "launches": launches + train_fwd,
-        "max_abs_err": max(errs),
+        "launches": launches + train_fwd + bucket_launches,
+        "max_abs_err": max(errs + [bucket_err]),
         "ms": ms_kernel,
         "plain_ms": ms_plain,
         "bound_ms": bound_ms,
@@ -557,7 +776,17 @@ def main() -> None:
         "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by,
         "library_ms": None,
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+        "replaces": replaces,
+        **api[name],
+    } for name, src, replaces in (
+        ("flash_attn", "flash_attn", "src/repro/kernels/flash_attn.py:96"),
+        ("poly_attn", "poly_attn", "src/repro/kernels/poly_attn.py:99"),
+        ("wkv_chunked", "wkv_chunk", "src/repro/kernels/wkv_chunk.py:93"),
+    )]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import check_cuda_inputs, raise_on
 from repro_torch.kernels.ref import cheb_attn_bwd_ref, cheb_attn_ref
 
 MAX_COEFFS = 64                     # CHEB_MAX_COEFFS in csrc/cheb_attn.cu
@@ -135,17 +136,6 @@ def _batched(x, h_nb, mask):
     return x, h_nb, mask
 
 
-def _check(what, x, tensors):
-    for name, t in tensors.items():
-        if t.device.type != "cuda" or t.device != x.device:
-            raise ValueError(f"{what}: {name} is on {t.device}, x on {x.device}; "
-                             "all inputs must be on one CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")
-
-
 def _check_coeffs(coeffs):
     p = coeffs.numel()
     if coeffs.dim() != 1 or not 1 <= p <= MAX_COEFFS:
@@ -154,19 +144,12 @@ def _check_coeffs(coeffs):
     return p
 
 
-def _raise_on(rc, lib, what):
-    if rc != 0:
-        raise RuntimeError(
-            f"{what} kernel launch failed: CUDA error {rc} "
-            f"({lib.cheb_attn_error_string(rc).decode()})"
-        )
-
-
 def _launch(x, h_nb, mask, coeffs):
     lib = _library()
     out_shape = x.shape[:-1] + h_nb.shape[-1:]
     x4, h4, m4 = _batched(x, h_nb, mask)
-    _check("cheb_attn", x, {"x": x4, "h_nb": h4, "mask": m4, "coeffs": coeffs})
+    check_cuda_inputs("cheb_attn", {"x": x4, "h_nb": h4, "mask": m4, "coeffs": coeffs},
+                      (torch.float32,))
     p = _check_coeffs(coeffs)
     g, heads, n, b = x4.shape
     d = h4.shape[-1]
@@ -180,7 +163,7 @@ def _launch(x, h_nb, mask, coeffs):
             x4.data_ptr(), h4.data_ptr(), m4.data_ptr(), coeffs.data_ptr(),
             out.data_ptr(), g, heads, n, b, d, p, node_tile, d_tile, smem, stream,
         )
-    _raise_on(rc, lib, "cheb_attn")
+    raise_on(rc, lib.cheb_attn_error_string, "cheb_attn")
     cheb_attn.launches += 1
     return out.reshape(out_shape)
 
@@ -194,8 +177,9 @@ def _launch_backward(x, h_nb, mask, coeffs, dout, needs):
         raise ValueError(f"cheb_attn backward: dout has shape {tuple(dout.shape)}, "
                          f"the forward's output {tuple(x.shape[:-1] + h_nb.shape[-1:])}")
     d4 = dout.reshape(g, heads, n, d)
-    _check("cheb_attn backward", x,
-           {"x": x4, "h_nb": h4, "mask": m4, "coeffs": coeffs, "dout": d4})
+    check_cuda_inputs("cheb_attn backward",
+                      {"x": x4, "h_nb": h4, "mask": m4, "coeffs": coeffs, "dout": d4},
+                      (torch.float32,))
     p = _check_coeffs(coeffs)
     node_tile, group, smem = backward_launch_config(heads, b, d)
     tiles = -(-n // node_tile)
@@ -213,7 +197,7 @@ def _launch_backward(x, h_nb, mask, coeffs, dout, needs):
                 *(t.data_ptr() if t is not None else None for t in (dx, dh, dm, dq_part)),
                 g, heads, n, b, d, p, node_tile, group, smem, stream,
             )
-        _raise_on(rc, lib, "cheb_attn backward")
+        raise_on(rc, lib.cheb_attn_error_string, "cheb_attn backward")
         cheb_attn_backward.launches += 1
     return (
         None if dx is None else dx.reshape(x.shape),

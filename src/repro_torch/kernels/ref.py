@@ -1,10 +1,19 @@
-"""Plain PyTorch versions of the port's kernels.
+"""Plain PyTorch versions of the port's kernels, and the reference's oracles.
 
 ``cheb_attn_ref`` is the port of ``repro/kernels/ref.py::cheb_attn_ref``;
 ``cheb_attn_bwd_ref`` is its backward written out as formulas. The CPU
 tests run both through the kernel wrapper (CPU tensors take the plain
 versions), and ``chip_smoke.py`` holds the CUDA kernels against them on
 the card.
+
+``flash_attn_ref``, ``wkv_ref`` and ``poly_attn_ref`` copy the reference's
+oracles (``repro/kernels/ref.py:31,46,69``) with the same arguments and the
+same arithmetic. They are used only to check: the sequence kernels' wrappers
+run their own plain versions, which follow the TPU kernels (see
+:mod:`~repro_torch.kernels.flash_attn`, :mod:`~repro_torch.kernels.poly_attn`
+and :mod:`~repro_torch.kernels.wkv_chunk`). ``poly_attn_ref`` keeps the
+oracle's ``maximum(den, 1e-9)`` guard, which differs from the TPU kernel's
+on rows with a negative denominator.
 """
 from __future__ import annotations
 
@@ -104,3 +113,65 @@ def cheb_attn_bwd_ref(
             gp = gp * x4
         dcoeffs = torch.stack(terms)
     return dx, dh, dmask, dcoeffs
+
+
+def flash_attn_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain softmax attention. q/k/v: (B, H, S, hd) -> (B, H, S, hd)."""
+    hd = q.shape[-1]
+    scale = scale or hd**-0.5
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        S = q.shape[2]
+        msk = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        scores = torch.where(msk[None, None], scores, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
+
+
+def wkv_ref(r, k, v, w, u, S0):
+    """RWKV6 wkv recurrence oracle (sequential scan, one step per token).
+
+    r/k/v/w: (BH, S, hd); u: (hd,); S0: (BH, hd, hd).
+      y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
+      S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    Returns (y: (BH, S, hd) f32, S_final f32).
+    """
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    uf = u.float()
+    S = S0.float()
+    ys = []
+    for t in range(rf.shape[1]):
+        kv = torch.einsum("bk,bv->bkv", kf[:, t], vf[:, t])
+        ys.append(torch.einsum("bk,bkv->bv", rf[:, t], S + uf[None, :, None] * kv))
+        S = wf[:, t, :, None] * S + kv
+    y = torch.stack(ys, dim=1) if ys else rf.new_zeros(rf.shape)
+    return y, S
+
+
+def poly_attn_ref(
+    q: torch.Tensor, k: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor,
+    v: torch.Tensor, coeffs, *, causal: bool = True, domain: float = 4.0,
+) -> torch.Tensor:
+    """FedGAT-style additive polynomial attention for transformers (the
+    reference's oracle, argument order and guard included).
+
+    q/k/v: (B, H, S, hd); a1/a2: (H, hd). Scores x_ij = a1.q_i + a2.k_j,
+    weights = series(x) / max(sum series(x), 1e-9) over the allowed positions.
+    """
+    sq = torch.einsum("bhqd,hd->bhq", q.float(), a1.float())
+    sk = torch.einsum("bhkd,hd->bhk", k.float(), a2.float())
+    x = torch.clamp(sq[..., :, None] + sk[..., None, :], -domain, domain)
+    coeffs = torch.as_tensor(coeffs, dtype=torch.float32, device=q.device)
+    e = torch.zeros_like(x)
+    for qn in coeffs.flip(0):
+        e = e * x + qn
+    if causal:
+        S = q.shape[2]
+        msk = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        e = e * msk[None, None]
+    num = torch.einsum("bhqk,bhkd->bhqd", e, v.float())
+    den = torch.sum(e, dim=-1, keepdim=True)
+    return (num / torch.clamp(den, min=1e-9)).to(q.dtype)

@@ -192,7 +192,9 @@ def test_port_imports_neither_jax_nor_repro():
         "new = ['repro_torch.federated.trainer', 'repro_torch.federated.partition',\n"
         "       'repro_torch.federated.comm', 'repro_torch.federated.aggregation',\n"
         "       'repro_torch.optim.adamw', 'repro_torch.privacy.config',\n"
-        "       'repro_torch.core.gcn', 'repro_torch.checkpoint.ckpt']\n"
+        "       'repro_torch.core.gcn', 'repro_torch.checkpoint.ckpt',\n"
+        "       'repro_torch.kernels.flash_attn', 'repro_torch.kernels.poly_attn',\n"
+        "       'repro_torch.kernels.wkv_chunk', 'repro_torch.kernels._launch']\n"
         "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
     )
