@@ -94,8 +94,8 @@ def cheb_attn_layer_bucketed(
     params: Mapping[str, torch.Tensor],
     coeffs: torch.Tensor,
     h: torch.Tensor,
-    nbr_idx: np.ndarray,
-    nbr_mask: np.ndarray,
+    nbr_idx,
+    nbr_mask,
     *,
     plan: Optional[List[Tuple[np.ndarray, int]]] = None,
     basis: str = "power",
@@ -107,18 +107,20 @@ def cheb_attn_layer_bucketed(
     flat layer's; the padded work drops from O(N * B_max) to ~O(sum_i 2 deg_i).
     Differentiable through the kernel's backward, as the flat layer.
 
-    ``nbr_idx``/``nbr_mask`` are host arrays (numpy): trimming relies on the
-    valid slots forming a prefix of each padded row, which ``csr_to_padded``
-    guarantees.
+    ``nbr_idx``/``nbr_mask`` are numpy arrays or tensors; tensors already on
+    ``h``'s device (as the flat layer takes them), and a ``plan`` whose row
+    indices are such tensors, are used as they are, so nothing is uploaded
+    per call. Without ``plan`` it is made from a host copy of ``nbr_mask``.
+    Trimming relies on the valid slots forming a prefix of each padded row,
+    which ``csr_to_padded`` guarantees.
     """
     if basis != "power":
         raise ValueError("kernel engine evaluates the monomial (power) basis")
     from repro_torch.core.poly_attention import head_projections
 
-    nbr_idx = np.asarray(nbr_idx)
-    nbr_mask = np.asarray(nbr_mask)
     if plan is None:
-        plan = degree_bucket_plan(nbr_mask)
+        host_mask = nbr_mask.cpu().numpy() if torch.is_tensor(nbr_mask) else nbr_mask
+        plan = degree_bucket_plan(host_mask)
     n, d = h.shape
     b1, b2 = head_projections(params)
     s1 = torch.einsum("nd,hd->hn", h, b1)                 # (H, N)
@@ -126,7 +128,7 @@ def cheb_attn_layer_bucketed(
     heads = s1.shape[0]
     co = torch.as_tensor(coeffs, dtype=torch.float32, device=h.device)
 
-    idx_all = torch.as_tensor(nbr_idx, device=h.device)  # one upload; buckets cut on the device
+    idx_all = torch.as_tensor(nbr_idx, device=h.device)  # buckets are cut on the device
     mask_all = torch.as_tensor(nbr_mask, device=h.device)
     agg = torch.zeros((heads, n, d), dtype=h.dtype, device=h.device)
     for rows, cap in plan:
@@ -135,7 +137,7 @@ def cheb_attn_layer_bucketed(
         mask_f = mask_all[rows_t, :cap].to(h.dtype)
         x = s1[:, rows_t, None] + s2[:, nb]               # (H, n_k, cap)
         h_nb = h[nb] * mask_f[..., None]                  # (n_k, cap, d)
-        agg = agg.index_copy(1, rows_t, cheb_attn(x, h_nb, mask_f, co))
+        agg.index_copy_(1, rows_t, cheb_attn(x, h_nb, mask_f, co))
 
     out = torch.einsum("hnd,hdo->hno", agg, params["W"])
     if concat:

@@ -210,3 +210,22 @@ def test_cuda_bucketed_layer_matches_the_flat_layer():
     flat = ops.cheb_attn_layer(params, coeffs, h, torch.from_numpy(g.nbr_idx).long().cuda(),
                                torch.from_numpy(g.nbr_mask).cuda())
     torch.testing.assert_close(got, flat, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_bucketed_layer_takes_device_inputs():
+    _need_card()
+    g = make_cora_like("tiny", seed=0)
+    params = {"W": _randn((2, g.feature_dim, 4), 1, scale=0.1),
+              "a1": _randn((2, 4), 2), "a2": _randn((2, 4), 3)}
+    coeffs = torch.from_numpy(ATT16).cuda()
+    h = torch.from_numpy(np.asarray(g.features, np.float32)).cuda()
+    plan = ops.degree_bucket_plan(g.nbr_mask)
+    want = ops.cheb_attn_layer_bucketed(params, coeffs, h, g.nbr_idx, g.nbr_mask, plan=plan)
+    idx_d = torch.from_numpy(g.nbr_idx).long().cuda()
+    mask_d = torch.from_numpy(g.nbr_mask).cuda()
+    device_plan = [(torch.from_numpy(rows).cuda(), cap) for rows, cap in plan]
+    for kwargs in ({}, {"plan": device_plan}):
+        got = ops.cheb_attn_layer_bucketed(params, coeffs, h, idx_d, mask_d, **kwargs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)

@@ -308,6 +308,23 @@ def test_bucketed_layer_single_bucket_degenerates_to_flat():
     np.testing.assert_allclose(_np(one), _np(flat), atol=1e-6)
 
 
+def test_bucketed_layer_takes_tensor_inputs():
+    """Graph arrays and plan rows given as tensors (as a caller that keeps the
+    graph on the device holds them) give the numpy inputs' output exactly."""
+    g = _skewed_graph(seed=0)
+    jparams = init_gat_layer(jax.random.PRNGKey(2), g.feature_dim, 8, 2)
+    params = params_from_numpy([jparams], device="cpu")[0]
+    coeffs = torch.tensor([1.0, 0.5, 0.25])
+    h = torch.from_numpy(np.asarray(g.features))
+    plan = ops.degree_bucket_plan(g.nbr_mask)
+    want = ops.cheb_attn_layer_bucketed(params, coeffs, h, g.nbr_idx, g.nbr_mask, plan=plan)
+    idx_t, mask_t = torch.from_numpy(g.nbr_idx).long(), torch.from_numpy(g.nbr_mask)
+    tensor_plan = [(torch.from_numpy(rows), cap) for rows, cap in plan]
+    for kwargs in ({}, {"plan": tensor_plan}):
+        got = ops.cheb_attn_layer_bucketed(params, coeffs, h, idx_t, mask_t, **kwargs)
+        assert torch.equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # the wrappers: CPU plain path, no fallback, the package's names
 # ---------------------------------------------------------------------------
