@@ -6,7 +6,9 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 1. Environment: versions, the card's name and power limit, and the build of
    every CUDA kernel under ``src/repro_torch/kernels/csrc`` (one ``nvcc``
-   each, started together).
+   each, started together), with each kernel's registers and spills and
+   the tensor-core instructions (wgmma, mma.sync) in the flash and
+   cheb_attn libraries.
 2. Kernels against their plain PyTorch versions on the card: ``cheb_attn``
    on the inputs the serving path gives it for the ``sbm_1m`` graph (H8
    N1e6 B16 D16, p=16), with isolated rows and negative-denominator rows
@@ -15,7 +17,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    The backward kernel likewise, all four cotangents against the plain
    backward and ``dx`` against ``torch.autograd`` through the plain forward,
    at the sbm_1m training shape from a real layer-1 input (with isolated and
-   negative-denominator rows spliced in) and on the ragged layouts.
+   negative-denominator rows spliced in) and on the ragged layouts, and
+   ``dx`` alone (training's request, the kernel's register path) at the
+   training shape.
 3. Serving: ``GraphInferenceServer`` with ``engine="kernel"`` answers 256
    Poisson queries at 2000 qps from 4 clients through ``MicroBatcher`` on
    ``sbm_1m`` with ``FedGATConfig()`` widths and seeded random weights. The
@@ -41,7 +45,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    (``BF16_TOL``); ``cheb_attn`` on each bucket's inputs against its plain
    version, and the bucketed layer against the flat one; each kernel timed
    beside its plain version, its bound and, for flash,
-   ``scaled_dot_product_attention``.
+   ``scaled_dot_product_attention``; flash's ``launch_plan`` (tiles, load
+   path) is printed for both dtypes.
 
 The second-to-last line is a JSON object describing each kernel
 (``launches``: cheb_attn's over the serving, training and kernel-API
@@ -100,6 +105,37 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> list:
+    """'kernel: R registers, S bytes spill stores' for each entry function
+    in an ``nvcc -Xptxas -v`` log."""
+    rows, fn, spill = [], None, "0"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.split("bytes spill stores")[0].split(",")[-1].strip()
+        elif "Used" in line and "registers" in line and fn is not None:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            rows.append(f"{fn}: {regs} registers, {spill} bytes spill stores")
+            fn, spill = None, "0"
+    return rows
+
+
+def sass_mma_counts(lib) -> dict:
+    """How many wgmma (HGMMA) and mma.sync (HMMA) instructions of each shape
+    the built library holds, from ``cuobjdump -sass``."""
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts = {}
+    for word in sass.split():
+        if word.startswith(("HGMMA.", "HMMA.")):
+            counts[word] = counts.get(word, 0) + 1
+    return counts
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -379,6 +415,11 @@ def kernel_api_phase(dev, g, params, coeffs, h, nbr_idx, nbr_mask):
     plan_dev = [(torch.as_tensor(rows, device=dev), cap) for rows, cap in plan]
     torch.cuda.synchronize()
 
+    from repro_torch.kernels.flash_attn import _alignment, launch_plan
+
+    for qq in (qb, q):
+        print(f"flash_attn launch_plan {tuple(qq.shape)} {str(qq.dtype).replace('torch.', '')}: "
+              f"{launch_plan(s, hd, qq.dtype, _alignment(qq, kb if qq is qb else k))}", flush=True)
     counters = (flash_attn, poly_attn, wkv_chunked, cheb_attn)
     for fn in counters:
         fn.launches = 0
@@ -487,7 +528,10 @@ def kernel_api_phase(dev, g, params, coeffs, h, nbr_idx, nbr_mask):
                 "plain_ms": row["plain_ms"], "bound_ms": bms, "bound_by": by,
                 "library_ms": row["library_ms"]}
 
-    return {"flash_attn": entry("flash_attn", rows["flash_attn bf16"]),
+    flash = entry("flash_attn", rows["flash_attn bf16"])
+    flash.update(ms_f32=rows["flash_attn f32"]["ms"],
+                 library_ms_f32=rows["flash_attn f32"]["library_ms"])
+    return {"flash_attn": flash,
             "poly_attn": entry("poly_attn", rows["poly_attn f32"]),
             "wkv_chunked": entry("wkv_chunked", rows["wkv_chunked f32"])}, \
         len(plan), bucket_kernel_err, bucket_err
@@ -519,8 +563,10 @@ def main() -> None:
     libs = _build.build(_build.kernel_names())
     print(f"kernel build: {len(libs)} libraries in {time.perf_counter() - t0:.2f}s")
     for name, info in sorted(_build.build_info.items()):
-        ptxas = " | ".join(l.strip() for l in str(info["ptxas"]).splitlines() if "ptxas" in l)
-        print(f"  {name}: nvcc {info['seconds']:.2f}s; {ptxas}", flush=True)
+        print(f"  {name}: nvcc {info['seconds']:.2f}s; "
+              + "; ".join(ptxas_summary(str(info["ptxas"]))), flush=True)
+    for name in ("flash_attn", "cheb_attn"):
+        print(f"  {name} SASS tensor-core instructions: {sass_mma_counts(libs[name])}", flush=True)
 
     # -- set-up: the sbm_1m graph and the model's weights ------------------
     t0 = time.perf_counter()
@@ -600,7 +646,6 @@ def main() -> None:
     m2[neg] = 1.0
     bwd_errs.append(compare_cheb_attn_backward(
         "train+isolated+negative", x2, h_nb, m2, coeffs, dout, iso=iso))
-    del x2, m2
     for label, lead, glead, (nn_, b, d) in [
         ("ragged-3d", (8,), (), (1001, 24, 48)),
         ("ragged-2d", (), (), (1001, 24, 48)),
@@ -619,6 +664,23 @@ def main() -> None:
         bwd_errs.append(compare_cheb_attn_backward(
             label, xs, hs, ms, coeffs, ds, iso=(5,), nan_rows=(11,)))
     dx_only = (True, False, False, False)              # what training asks for
+    # Training's request takes the kernel's register path (no dh_nb, no
+    # dcoeffs): dx alone against the plain backward, with the isolated and
+    # negative-denominator rows.
+    for label, xx, mm in (("train", x, mask_f), ("train+isolated+negative", x2, m2)):
+        got = cheb_attn_backward(xx, h_nb, mm, coeffs, dout, dx_only)[0]
+        want = cheb_attn_bwd_ref(xx, h_nb, mm, coeffs, dout, dx_only)[0]
+        err = float((got - want).abs().max())
+        ok = torch.allclose(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+        zeros = all(bool((got[:, i] == 0).all()) for i in iso) if mm is m2 else True
+        print(f"cheb_attn backward {label} (dx only): max_abs_err {err:.3e} "
+              f"allclose(rtol={GRAD_RTOL},atol={GRAD_ATOL})={ok} isolated_rows_exact_zero={zeros}",
+              flush=True)
+        if not (ok and zeros):
+            fail(f"cheb_attn backward {label} (dx only): kernel disagrees with the plain version")
+        bwd_errs.append(err)
+        del got, want
+    del x2, m2
     ms_bwd = cuda_ms(lambda: cheb_attn_backward(x, h_nb, mask_f, coeffs, dout, dx_only))
     ms_bwd_all = cuda_ms(lambda: cheb_attn_backward(x, h_nb, mask_f, coeffs, dout), reps=5)
     ms_bwd_plain = cuda_ms(lambda: cheb_attn_bwd_ref(x, h_nb, mask_f, coeffs, dout, dx_only),

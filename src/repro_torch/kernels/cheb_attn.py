@@ -9,9 +9,13 @@ the output once; ~2.1 GB, ~0.63 ms at 3.35 TB/s for the sbm_1m serving
 shape). Its design: one block per node tile x feature tile with every
 head inside the block, so each neighbour-feature tile is read from device
 memory once for all heads; the polynomial weights and denominators of the
-tile live in shared memory. The backward kernel keeps that layout and recomputes the weights,
-denominators and output instead of saving them (~2.6 GB, ~0.78 ms at the
-sbm_1m training shape when only ``dx`` is asked for).
+tile live in shared memory. The backward kernel recomputes the weights and
+denominators instead of saving them, one warp per node in a grid-stride
+loop: each node's scores, neighbour tile and dout are read from device
+memory once into the warp's slice of shared memory, and the cotangent of
+the weights is factored into two small products so that the output is
+never formed (~2.6 GB, ~0.78 ms at the sbm_1m training shape when only
+``dx`` is asked for).
 
 :func:`cheb_attn` is a ``torch.autograd.Function``. CPU tensors take the
 plain versions (:func:`~repro_torch.kernels.ref.cheb_attn_ref` forward,
@@ -22,6 +26,7 @@ launch the kernels or raise. There is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -33,8 +38,7 @@ from repro_torch.kernels.ref import cheb_attn_bwd_ref, cheb_attn_ref
 
 MAX_COEFFS = 64                     # CHEB_MAX_COEFFS in csrc/cheb_attn.cu
 _THREADS = 256
-_BWD_THREADS = 256                  # BWD_THREADS in csrc/cheb_attn.cu
-_BWD_NODE_TILE_MAX = 32
+_BWD_MAX_WARPS = 8                  # BWD_MAX_WARPS in csrc/cheb_attn.cu
 _SMEM_DEFAULT = 48 * 1024           # dynamic shared memory without opt-in
 _SMEM_MAX = 227 * 1024              # H100: most a block can opt in to
 
@@ -57,19 +61,24 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
         ]
         lib.cheb_attn_backward.restype = ctypes.c_int
-        lib.cheb_attn_bwd_threads.argtypes = []
-        lib.cheb_attn_bwd_threads.restype = ctypes.c_int
+        lib.cheb_attn_bwd_blocks_per_sm.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.cheb_attn_bwd_blocks_per_sm.restype = ctypes.c_int
+        lib.cheb_attn_bwd_max_warps.argtypes = []
+        lib.cheb_attn_bwd_max_warps.restype = ctypes.c_int
         lib.cheb_attn_error_string.argtypes = [ctypes.c_int]
         lib.cheb_attn_error_string.restype = ctypes.c_char_p
         lib.cheb_attn_max_coeffs.argtypes = []
         lib.cheb_attn_max_coeffs.restype = ctypes.c_int
         if lib.cheb_attn_max_coeffs() != MAX_COEFFS:
             raise RuntimeError("csrc/cheb_attn.cu and cheb_attn.py disagree on MAX_COEFFS")
-        if lib.cheb_attn_bwd_threads() != _BWD_THREADS:
-            raise RuntimeError("csrc/cheb_attn.cu and cheb_attn.py disagree on BWD_THREADS")
+        if lib.cheb_attn_bwd_max_warps() != _BWD_MAX_WARPS:
+            raise RuntimeError("csrc/cheb_attn.cu and cheb_attn.py disagree on BWD_MAX_WARPS")
         _lib = lib
     return _lib
 
@@ -95,27 +104,64 @@ def launch_config(heads: int, b: int, d: int) -> Tuple[int, int, int]:
     return node_tile, d_tile, smem
 
 
-def backward_launch_config(heads: int, b: int, d: int) -> Tuple[int, int, int]:
-    """``(node_tile, group, smem_bytes)`` for one backward launch.
+def _bwd_ld(dc: int) -> int:
+    """Row stride of a staged chunk (bwd_ld in csrc/cheb_attn.cu): a
+    multiple of 4 floats whose quarter is odd when ``dc`` is a multiple of
+    4 (16-byte rows, 8 lanes' rows in distinct banks), else odd."""
+    if dc % 4:
+        return dc | 1
+    q = dc // 4 + 1
+    return 4 * (q + 1 - (q & 1))
 
-    ``group`` is the lanes that share one (node, neighbour) pair's D-sum:
-    the next power of two >= D, at most 32. ``node_tile`` is the most nodes
-    (at most 32) whose scores, weights, cotangents of e, out and dout fit
-    the default 48 KB of shared memory. The size formula matches the
-    shared-memory layout of ``cheb_attn_bwd_kernel`` in ``csrc/cheb_attn.cu``.
+
+def backward_launch_config(heads: int, b: int, d: int) -> Tuple[int, int, int]:
+    """``(warps, d_chunk, smem_bytes)`` for one backward launch.
+
+    Each warp owns one node at a time and stages it in its own slice of
+    shared memory: the scores, the mask row and ``d_chunk`` columns of the
+    neighbour tile and of dout (rows at stride :func:`_bwd_ld`); then p,
+    p', the weights and the products ``A`` (4 H*B floats) and two
+    H-vectors, every array rounded up to 4 floats; besides, ``MAX_COEFFS``
+    floats for its dcoeffs partial, and the block the coefficients.
+    ``d_chunk`` is D when the slice fits the default 48 KB of a block, else
+    the widest chunk that does (a multiple of 32 when at least 32); a slice
+    that does not fit even one column opts in to the 227 KB a block can
+    have, and a larger one raises. ``warps`` fills the block, at most
+    ``_BWD_MAX_WARPS``. The size formula matches the slice layout of
+    ``cheb_attn_bwd_kernel`` in ``csrc/cheb_attn.cu``.
     """
-    group = min(32, 1 << max(d - 1, 0).bit_length())
-    bp = b | 1
-    fixed = 4 * MAX_COEFFS * (1 + _BWD_THREADS // 32)      # coeffs + warp sums
-    per_node = 4 * (heads + bp + 3 * heads * bp + 2 * heads * d)
-    node_tile = max(1, min(_BWD_NODE_TILE_MAX, (_SMEM_DEFAULT - fixed) // per_node))
-    smem = fixed + node_tile * per_node
-    if smem > _SMEM_MAX:
+    fixed = 4 * MAX_COEFFS
+
+    def r4(n):
+        return -(-n // 4) * 4
+
+    def per_warp(dc):
+        ld = _bwd_ld(dc)
+        floats = 5 * r4(heads * b) + r4(b) + r4(b * ld) + r4(heads * ld) + 2 * r4(heads)
+        return 4 * (floats + MAX_COEFFS)
+
+    budget = _SMEM_DEFAULT if fixed + per_warp(1) <= _SMEM_DEFAULT else _SMEM_MAX
+    if fixed + per_warp(1) > budget:
         raise ValueError(
-            f"cheb_attn backward: H={heads}, B={b}, D={d} needs {smem} bytes of "
-            f"shared memory for one node, above the {_SMEM_MAX} a block can have"
+            f"cheb_attn backward: H={heads}, B={b}, D={d} needs {fixed + per_warp(1)} bytes "
+            f"of shared memory for one node, above the {_SMEM_MAX} a block can have"
         )
-    return node_tile, group, smem
+    d_chunk = max(d, 1)
+    if fixed + per_warp(d_chunk) > budget:
+        d_chunk = max(c for c in range(1, d + 1) if fixed + per_warp(c) <= budget)
+        if d_chunk >= 32:
+            d_chunk -= d_chunk % 32
+    warps = max(1, min(_BWD_MAX_WARPS, (budget - fixed) // per_warp(d_chunk)))
+    return warps, d_chunk, fixed + warps * per_warp(d_chunk)
+
+
+def backward_grid(nodes: int, warps: int, blocks_per_sm: int, sm_count: int) -> int:
+    """Blocks of the backward's grid-stride loop over ``nodes``: one wave of
+    the blocks that fit on the card at once (``blocks_per_sm``, from the
+    CUDA occupancy query of the kernel instance), fewer when there are
+    fewer nodes. More blocks than fit would run in a second, partial wave
+    after the first."""
+    return max(1, min(-(-nodes // warps), sm_count * max(1, blocks_per_sm)))
 
 
 def _batched(x, h_nb, mask):
@@ -168,6 +214,23 @@ def _launch(x, h_nb, mask, coeffs):
     return out.reshape(out_shape)
 
 
+@functools.lru_cache(maxsize=None)
+def _occupancy(device: int, p: int, want_dq: bool, warps: int, smem: int) -> Tuple[int, int]:
+    """(SMs of the card, backward blocks that fit on one SM), asked once per
+    launch shape: the query costs more host time than a launch."""
+    lib = _library()
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        raise_on(lib.cheb_attn_bwd_blocks_per_sm(p, int(want_dq), warps, smem,
+                                                 ctypes.byref(per_sm)),
+                 lib.cheb_attn_error_string, "cheb_attn backward occupancy")
+    return torch.cuda.get_device_properties(device).multi_processor_count, per_sm.value
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _launch_backward(x, h_nb, mask, coeffs, dout, needs):
     lib = _library()
     x4, h4, m4 = _batched(x, h_nb, mask)
@@ -181,21 +244,26 @@ def _launch_backward(x, h_nb, mask, coeffs, dout, needs):
                       {"x": x4, "h_nb": h4, "mask": m4, "coeffs": coeffs, "dout": d4},
                       (torch.float32,))
     p = _check_coeffs(coeffs)
-    node_tile, group, smem = backward_launch_config(heads, b, d)
-    tiles = -(-n // node_tile)
+    warps, d_chunk, smem = backward_launch_config(heads, b, d)
+    sm_count, per_sm = _occupancy(x.device.index, p, bool(needs[3]), warps, smem)
+    grid = backward_grid(g * n, warps, per_sm, sm_count)
 
-    def empty(shape, want):
-        return torch.zeros(shape, dtype=torch.float32, device=x.device) if want else None
+    def empty(shape, want):              # the kernel writes every entry
+        return torch.empty(shape, dtype=torch.float32, device=x.device) if want else None
 
     dx, dh, dm = empty(x4.shape, needs[0]), empty(h4.shape, needs[1]), empty(m4.shape, needs[2])
-    dq_part = empty((g * tiles, p), needs[3])
+    dq_part = empty((grid, p), needs[3])
     if x4.numel() and any(needs):
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             rc = lib.cheb_attn_backward(
                 x4.data_ptr(), h4.data_ptr(), m4.data_ptr(), coeffs.data_ptr(), d4.data_ptr(),
                 *(t.data_ptr() if t is not None else None for t in (dx, dh, dm, dq_part)),
-                g, heads, n, b, d, p, node_tile, group, smem, stream,
+                g, heads, n, b, d, p, warps, d_chunk, grid,
+                int(b % 4 == 0 and _aligned(x4, m4)),
+                int(d > 0 and d % 4 == 0 and (d_chunk == d or d_chunk % 4 == 0)
+                    and _aligned(h4, d4)),
+                smem, stream,
             )
         raise_on(rc, lib.cheb_attn_error_string, "cheb_attn backward")
         cheb_attn_backward.launches += 1

@@ -36,7 +36,7 @@
 
 #define CHEB_MAX_COEFFS 64
 #define HEAD_CHUNK 8
-#define BWD_THREADS 256
+#define BWD_MAX_WARPS 8
 
 // Horner from the highest coefficient with separate roundings, as the
 // reference's e * x + q_n (no FMA contraction).
@@ -134,21 +134,117 @@ __global__ void cheb_attn_kernel(
 // Any of dx, dh_nb, dmask and dq_part may be null: that cotangent is not
 // computed (training asks for dx alone). dcoeffs is reduced across blocks
 // in a second pass: each block writes its P partial sums to
-// dq_part[block], and the wrapper sums the rows, so the result does not
-// depend on the order blocks run in.
+// dq_part[block], and the wrapper sums the rows. Nodes go to warps in a
+// fixed order, so the result does not depend on the order blocks run in.
 //
 // Bound: memory. dx alone reads x, h_nb, mask and dout once and writes dx
 // once (at the sbm_1m training shape H8 N1e6 B16 D16, ~2.6 GB against
-// ~12 GFLOP). h_nb is read twice per node tile (for out, then for g_e);
-// the second read comes from L1/L2, as the tile was just touched.
+// ~12 GFLOP).
 //
-// Design: the forward's layout, one block per node tile with every head
-// inside the block. The tile's scores, mask, weights, denominators, out and
-// dout live in shared memory; ragged N and D are masked here. The D-sums
-// of g_e run on groups of `group` lanes (group = next power of two >= D,
-// at most 32), one (node, neighbour) pair per group, reduced with xor
-// shuffles, so each lane's h_nb loads run along D.
-__global__ void __launch_bounds__(BWD_THREADS) cheb_attn_bwd_kernel(
+// Design: one warp owns one node at a time, in a grid-stride loop over the
+// G*N nodes. It stages the node's H x B scores, its mask row, its B x D
+// neighbour tile and its H x D dout in its own slice of shared memory
+// (16-byte loads where the rows allow), each read from device memory once,
+// and syncs only with __syncwarp. Horner runs once per score, for p and
+// p' together, four scores of a lane at a time. g_e is factored into two
+// small products:
+//
+//   A[h,b] = sum_d dout[h,d] * h_nb[b,d]
+//   c[h]   = sum_d dout[h,d] * out[h,d] = sum_b w[h,b] * A[h,b],  w = e / den
+//   g_e    = (A - c) / den
+//
+// so `out` is never formed: w, den, A and c live in the slice, and nothing
+// is accumulated across heads by read-modify-write. Shapes whose tile does
+// not fit a slice loop over D in chunks of d_chunk columns (A accumulates
+// over the chunks). The copies are cp.async, all of a node's in flight at
+// once. Lanes walk their (h, b) items by increments, without integer
+// division. A second staged buffer, to fetch the next node during this
+// one, measured slower than the warps it costs. Where B is a power of two
+// up to 32, H*B is 32, 64 or 128, the tile is one chunk and neither dh_nb
+// nor dcoeffs is asked for (training's request), the register path keeps
+// each lane's items in registers and sums den and c over the B lanes of a
+// head with xor shuffles. dcoeffs
+// accumulates in registers (PQ >= P of them) and meets the only
+// block-wide barrier, around the per-block partial. The slice layout
+// (floats, each array rounded up to 4) must match
+// repro_torch/kernels/cheb_attn.py::backward_launch_config:
+//
+//   xs H*B (scores) | ms B | hs B*ld (h_nb chunk) | ds H*ld (dout chunk) |
+//   ps H*B (p) | dps H*B (p') | ws H*B (e, then w) | as H*B (A, then g_e) |
+//   inv H (1 / den) | cs H
+//
+// with ld = bwd_ld(d_chunk): a multiple of 4 whose quarter is odd when
+// d_chunk is (16-byte rows, and 8 lanes' rows in distinct banks), else
+// d_chunk | 1 (odd: the lanes' rows in distinct banks).
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__host__ __device__ __forceinline__ int bwd_ld(int dc) {
+    if (dc % 4) return dc | 1;
+    const int q = dc / 4 + 1;
+    return 4 * (q + 1 - (q & 1));
+}
+
+// A lane's walk over the entries of a rows x cols block, 32 entries apart:
+// (r, c) advances by (dr, dc) and carries, so no loop divides.
+struct Walk {
+    int r, c, dr, dc, cols;
+    __device__ __forceinline__ Walk(int cols_, int lane)
+        : r(lane / cols_), c(lane % cols_), dr(32 / cols_), dc(32 % cols_), cols(cols_) {}
+    __device__ __forceinline__ void next() {
+        r += dr;
+        c += dc;
+        if (c >= cols) {
+            c -= cols;
+            ++r;
+        }
+    }
+};
+
+// Rows x cols floats from src (row stride src_stride) into dst (row stride
+// ld), as cp.async copies spread over the warp's lanes along `w` (a walk
+// over cols, or over cols / 4 when vec: then cols, src_stride, src and the
+// rows of dst are 16-byte multiples, and each lane copies 16 bytes at a
+// time). No lane waits here: every copy of a node is in flight at once.
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* __restrict__ src,
+                                           int64_t src_stride, int rows, Walk w, bool vec) {
+    if (vec) {
+        for (; w.r < rows; w.next())
+            asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                         :: "r"(smem_u32(dst + w.r * ld + 4 * w.c)),
+                            "l"(src + w.r * src_stride + 4 * w.c) : "memory");
+    } else {
+        for (; w.r < rows; w.next())
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                         :: "r"(smem_u32(dst + w.r * ld + w.c)),
+                            "l"(src + w.r * src_stride + w.c) : "memory");
+    }
+}
+
+__device__ __forceinline__ void stage_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait for all but the newest n groups of this lane's copies, then make the
+// warp's copies visible to every lane.
+template <int n>
+__device__ __forceinline__ void stage_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(n) : "memory");
+    __syncwarp();
+}
+
+__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+
+// Register caps: 64 without dcoeffs (4 blocks of 8 warps per SM, so that
+// shared memory, not registers, bounds the warps in flight), 128 with its
+// PQ accumulators.
+// PQ: registers for the dcoeffs partial (0: not asked for). IPL > 0: the
+// register path, for B a power of two up to 32, H*B = 32 IPL, one D chunk,
+// and neither dh_nb nor dcoeffs asked for.
+template <int PQ, int IPL>
+__global__ void __launch_bounds__(BWD_MAX_WARPS * 32, PQ > 0 ? 2 : 4) cheb_attn_bwd_kernel(
     const float* __restrict__ x,       // (G, H, N, B)
     const float* __restrict__ h_nb,    // (G, N, B, D)
     const float* __restrict__ mask,    // (G, N, B)
@@ -157,200 +253,272 @@ __global__ void __launch_bounds__(BWD_THREADS) cheb_attn_bwd_kernel(
     float* __restrict__ dx,            // (G, H, N, B) or null
     float* __restrict__ dh,            // (G, N, B, D) or null
     float* __restrict__ dmask,         // (G, N, B) or null
-    float* __restrict__ dq_part,       // (G * node tiles, P) or null
-    int H, int64_t N, int B, int D, int P, int T, int group)
+    float* __restrict__ dq_part,       // (grid, P), used when PQ > 0
+    int G, int H, int64_t N, int B, int D, int P, int DC, int vec_b, int vec_d)
 {
     extern __shared__ float smem[];
-    const int BP = B | 1;
-    const int nwarps = BWD_THREADS / 32;
-    float* q_s = smem;                                  // CHEB_MAX_COEFFS
-    float* dq_s = q_s + CHEB_MAX_COEFFS;                // nwarps * CHEB_MAX_COEFFS
-    float* den_s = dq_s + nwarps * CHEB_MAX_COEFFS;     // H * T
-    float* m_s = den_s + H * T;                         // T * BP
-    float* x_s = m_s + T * BP;                          // H * T * BP
-    float* w_s = x_s + (size_t)H * T * BP;              // H * T * BP: e, then e / den
-    float* g_s = w_s + (size_t)H * T * BP;              // H * T * BP: g_e
-    float* out_s = g_s + (size_t)H * T * BP;            // H * T * D
-    float* do_s = out_s + (size_t)H * T * D;            // H * T * D
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+    const int HB = H * B, ld = bwd_ld(DC);
+    const int per_warp = 5 * round4(HB) + round4(B) + round4(B * ld) + round4(H * ld) +
+                         2 * round4(H);
+    float* q_s = smem;                                   // CHEB_MAX_COEFFS
+    float* dq_s = q_s + CHEB_MAX_COEFFS;                 // nwarps * CHEB_MAX_COEFFS
+    float* xs = dq_s + nwarps * CHEB_MAX_COEFFS + (size_t)warp * per_warp;
+    float* ms = xs + round4(HB);
+    float* hs = ms + round4(B);
+    float* ds = hs + round4(B * ld);
+    float* ps = ds + round4(H * ld);
+    float* dps = ps + round4(HB);
+    float* ws = dps + round4(HB);
+    float* as = ws + round4(HB);
+    float* inv = as + round4(HB);                        // 1 / den, 0 where den == 0
+    float* cs = inv + round4(H);
+    const bool need_ge = PQ > 0 || dx != nullptr || dmask != nullptr;
+    const bool ld4 = DC % 4 == 0;
 
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int64_t g = blockIdx.z;
-    const int64_t n0 = (int64_t)blockIdx.x * T;
-    const int TB = T * B;
-    const int TD = T * D;
-
-    for (int i = tid; i < P; i += BWD_THREADS) q_s[i] = coeffs[i];
-    for (int i = tid; i < nwarps * CHEB_MAX_COEFFS; i += BWD_THREADS) dq_s[i] = 0.f;
-    for (int i = tid; i < TB; i += BWD_THREADS) {
-        const int nl = i / B, b = i - nl * B;
-        const int64_t n = n0 + nl;
-        m_s[nl * BP + b] = n < N ? mask[(g * N + n) * B + b] : 0.f;
-    }
-    for (int i = tid; i < H * TD; i += BWD_THREADS) {
-        const int h = i / TD, r = i - h * TD;
-        const int nl = r / D, d = r - nl * D;
-        const int64_t n = n0 + nl;
-        do_s[i] = n < N ? dout[((g * H + h) * N + n) * D + d] : 0.f;
-        out_s[i] = 0.f;
-    }
+    for (int i = threadIdx.x; i < P; i += blockDim.x) q_s[i] = coeffs[i];
     __syncthreads();
 
-    // Scores and weights e = poly(x) * mask for every head of the tile.
-    for (int i = tid; i < H * TB; i += BWD_THREADS) {
-        const int h = i / TB, r = i - h * TB;
-        const int nl = r / B, b = r - nl * B;
-        const int64_t n = n0 + nl;
-        const float xv = n < N ? x[((g * H + h) * N + n) * B + b] : 0.f;
-        const int s = (h * T + nl) * BP + b;
-        x_s[s] = xv;
-        w_s[s] = horner(q_s, P, xv) * m_s[nl * BP + b];
-    }
-    __syncthreads();
-    for (int i = tid; i < H * T; i += BWD_THREADS) {
-        const float* row = w_s + (size_t)i * BP;
-        float s = 0.f;
-        for (int b = 0; b < B; ++b) s += row[b];
-        den_s[i] = s;
-    }
-    __syncthreads();
+    float dq[PQ > 0 ? PQ : 1];
+#pragma unroll
+    for (int k = 0; k < (PQ > 0 ? PQ : 1); ++k) dq[k] = 0.f;
 
-    // out = sum_b e h_nb / den, one thread per (node, column), all heads.
-    for (int i = tid; i < TD; i += BWD_THREADS) {
-        const int nl = i / D, d = i - nl * D;
-        const int64_t n = n0 + nl;
-        if (n >= N) continue;
-        const float* col = h_nb + (g * N + n) * B * (int64_t)D + d;
-        for (int b = 0; b < B; ++b) {
-            const float v = col[(int64_t)b * D];
-            for (int h = 0; h < H; ++h) {
-                float* o = out_s + (h * T + nl) * D + d;
-                *o = fmaf(w_s[(h * T + nl) * BP + b], v, *o);
+    // Walks that do not depend on the node: the (h, b) items, the staging of
+    // the B-rows, and of the full and the last D chunk.
+    const Walk items(B, lane);
+    const Walk wb(vec_b ? B / 4 : B, lane);
+    const int n_chunks = (D + DC - 1) / DC, last = D - (n_chunks - 1) * DC;
+    const Walk wd_full(vec_d ? DC / 4 : DC, lane), wd_last(vec_d ? last / 4 : last, lane);
+    const Walk wh_full(DC, lane), wh_last(last, lane);
+
+    const int64_t total = (int64_t)G * N;
+    const int64_t step = (int64_t)gridDim.x * nwarps;
+    int64_t t = (int64_t)blockIdx.x * nwarps + warp;
+    int64_t g = t / N, n = t - g * N;
+    for (; t < total; t += step) {
+        const int64_t xrow = (g * H * N + n) * B;        // x[g, 0, n, 0]
+        const int64_t orow = (g * H * N + n) * D;        // dout[g, 0, n, 0]
+        stage_rows(ms, B, mask + t * B, 0, 1, wb, vec_b);
+        stage_rows(xs, B, x + xrow, N * B, H, wb, vec_b);
+        if (n_chunks == 1) stage_rows(hs, ld, h_nb + t * B * D, D, B, wd_last, vec_d);
+        if (n_chunks == 1) stage_rows(ds, ld, dout + orow, N * D, H, wd_last, vec_d);
+        stage_commit();
+        stage_wait<0>();
+
+        if constexpr (IPL > 0) {
+            // The register path: lane holds items h = lane / B + j 32 / B,
+            // b = lane % B (j < IPL); each h's B items lie in one aligned
+            // group of B lanes, so den and c are xor-shuffle sums there.
+            const int b = lane & (B - 1), h0 = lane / B, dh_step = 32 / B;
+            const float mv = ms[b];
+            float xv[IPL], p[IPL], dp[IPL], w[IPL], r[IPL], a[IPL];
+#pragma unroll
+            for (int j = 0; j < IPL; ++j) {
+                xv[j] = xs[lane + 32 * j];
+                p[j] = dp[j] = a[j] = 0.f;
             }
-        }
-        for (int h = 0; h < H; ++h) {
-            const float den = den_s[h * T + nl];
-            float* o = out_s + (h * T + nl) * D + d;
-            *o = den != 0.f ? *o / den : 0.f;
-        }
-    }
-    __syncthreads();
-    if (dh != nullptr) {
-        for (int i = tid; i < H * TB; i += BWD_THREADS) {
-            const int h = i / TB, r = i - h * TB;
-            const int nl = r / B, b = r - nl * B;
-            const float den = den_s[h * T + nl];
-            const int s = (h * T + nl) * BP + b;
-            w_s[s] = den != 0.f ? w_s[s] / den : 0.f;
-        }
-        __syncthreads();
-    }
-
-    // g_e (and dh_nb): one (node, neighbour) pair per group of lanes. The
-    // loop bounds are uniform over the warp, so every lane reaches the shuffles.
-    const int ppw = 32 / group;                  // pairs per warp
-    const int sub = lane / group, dl = lane - sub * group;
-    for (int base = warp * ppw; base < TB; base += nwarps * ppw) {
-        const int pair = base + sub;
-        const int nl = pair / B, b = pair - nl * B;
-        const int64_t n = n0 + nl;
-        const bool valid = pair < TB && n < N;
-        const float* hrow = h_nb + ((g * N + n) * B + b) * (int64_t)D;
-        const int dend = valid ? D : 0;
-        for (int h0 = 0; h0 < H; h0 += HEAD_CHUNK) {
-            float acc[HEAD_CHUNK];
+            for (int k = P - 1; k >= 0; --k) {
+                const float q = q_s[k];
 #pragma unroll
-            for (int k = 0; k < HEAD_CHUNK; ++k) acc[k] = 0.f;
-            for (int d = dl; d < dend; d += group) {
-                const float v = hrow[d];
-#pragma unroll
-                for (int k = 0; k < HEAD_CHUNK; ++k) {
-                    if (h0 + k < H) {
-                        const int o = ((h0 + k) * T + nl) * D + d;
-                        acc[k] = fmaf(do_s[o], v - out_s[o], acc[k]);
-                    }
+                for (int j = 0; j < IPL; ++j) {
+                    dp[j] = __fadd_rn(__fmul_rn(dp[j], xv[j]), p[j]);
+                    p[j] = __fadd_rn(__fmul_rn(p[j], xv[j]), q);
                 }
             }
 #pragma unroll
-            for (int k = 0; k < HEAD_CHUNK; ++k)
-                for (int off = group >> 1; off > 0; off >>= 1)
-                    acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
-            if (valid && dl == 0) {
-#pragma unroll
-                for (int k = 0; k < HEAD_CHUNK; ++k) {
-                    const int h = h0 + k;
-                    if (h < H) {
-                        // Exact zero only for an exactly zero denominator, as the forward.
-                        const float den = den_s[h * T + nl];
-                        g_s[(h * T + nl) * BP + b] = den != 0.f ? acc[k] / den : 0.f;
+            for (int j = 0; j < IPL; ++j) {
+                const float e = p[j] * mv;
+                float den = e;
+                for (int off = B >> 1; off > 0; off >>= 1)
+                    den += __shfl_xor_sync(0xffffffffu, den, off);
+                r[j] = den != 0.f ? 1.f / den : 0.f;
+                w[j] = e * r[j];
+                const float* hr = hs + b * ld;
+                const float* dr = ds + (h0 + j * dh_step) * ld;
+                if (ld4) {
+                    for (int d = 0; d < D; d += 4) {
+                        const float4 hv = *reinterpret_cast<const float4*>(hr + d);
+                        const float4 dv = *reinterpret_cast<const float4*>(dr + d);
+                        a[j] = fmaf(dv.x, hv.x, a[j]);
+                        a[j] = fmaf(dv.y, hv.y, a[j]);
+                        a[j] = fmaf(dv.z, hv.z, a[j]);
+                        a[j] = fmaf(dv.w, hv.w, a[j]);
                     }
+                } else {
+                    for (int d = 0; d < D; ++d) a[j] = fmaf(dr[d], hr[d], a[j]);
                 }
             }
-        }
-        if (dh != nullptr) {
-            for (int d = dl; d < dend; d += group) {
-                float v = 0.f;
-                for (int h = 0; h < H; ++h)
-                    v = fmaf(w_s[(h * T + nl) * BP + b], do_s[(h * T + nl) * D + d], v);
-                dh[((g * N + n) * B + b) * (int64_t)D + d] = v;
-            }
-        }
-    }
-    __syncthreads();
-
-    // dx and dmask: one thread per (node, neighbour), all heads.
-    if (dx != nullptr || dmask != nullptr) {
-        for (int i = tid; i < TB; i += BWD_THREADS) {
-            const int nl = i / B, b = i - nl * B;
-            const int64_t n = n0 + nl;
-            if (n >= N) continue;
-            const float mv = m_s[nl * BP + b];
             float dm = 0.f;
-            for (int h = 0; h < H; ++h) {
-                const int s = (h * T + nl) * BP + b;
-                const float xv = x_s[s];
-                float p = 0.f, dp = 0.f;
-                for (int k = P - 1; k >= 0; --k) {
-                    dp = fmaf(dp, xv, p);
-                    p = __fadd_rn(__fmul_rn(p, xv), q_s[k]);
-                }
-                const float ge = g_s[s];
-                if (dx != nullptr) dx[((g * H + h) * N + n) * B + b] = ge * mv * dp;
-                dm = fmaf(ge, p, dm);
+#pragma unroll
+            for (int j = 0; j < IPL; ++j) {
+                float c = w[j] * a[j];
+                for (int off = B >> 1; off > 0; off >>= 1)
+                    c += __shfl_xor_sync(0xffffffffu, c, off);
+                const float ge = r[j] != 0.f ? (a[j] - c) * r[j] : 0.f;
+                if (dx != nullptr)
+                    dx[xrow + (int64_t)(h0 + j * dh_step) * N * B + b] = ge * mv * dp[j];
+                dm = fmaf(ge, p[j], dm);
             }
-            if (dmask != nullptr) dmask[(g * N + n) * B + b] = dm;
+            if (dmask != nullptr) {
+                for (int off = B; off < 32; off <<= 1) dm += __shfl_xor_sync(0xffffffffu, dm, off);
+                if (lane < B) dmask[t * B + b] = dm;
+            }
+            __syncwarp();                                // this node's slice is consumed
+            n += step;
+            while (n >= N) {
+                n -= N;
+                ++g;
+            }
+            continue;
+        }
+
+        // Horner for p and p' on up to 4 items at once: one coefficient load
+        // serves 4 independent chains.
+        for (Walk w0 = items; w0.r < H;) {
+            Walk w = w0;
+            int idx[4], col[4];
+            float xv[4], p[4], dp[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                idx[j] = w.r < H ? w.r * B + w.c : -1;
+                col[j] = w.c;
+                xv[j] = idx[j] >= 0 ? xs[idx[j]] : 0.f;
+                p[j] = dp[j] = 0.f;
+                w.next();
+            }
+            for (int k = P - 1; k >= 0; --k) {
+                const float q = q_s[k];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    // Separate roundings in the reference's order (dp * x + p,
+                    // then p * x + q_n): the degree-16 series cancels, and
+                    // fused rounding moves p' by more than the tolerance.
+                    dp[j] = __fadd_rn(__fmul_rn(dp[j], xv[j]), p[j]);
+                    p[j] = __fadd_rn(__fmul_rn(p[j], xv[j]), q);
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                if (idx[j] < 0) break;
+                ps[idx[j]] = p[j];
+                dps[idx[j]] = dp[j];
+                // The mask after Horner: inf * 0 is NaN, as the reference.
+                ws[idx[j]] = p[j] * ms[col[j]];
+                as[idx[j]] = 0.f;
+            }
+            w0 = w;
+        }
+        __syncwarp();
+        for (int h = lane; h < H; h += 32) {
+            float s = 0.f;
+#pragma unroll 4
+            for (int b = 0; b < B; ++b) s += ws[h * B + b];
+            inv[h] = s != 0.f ? 1.f / s : 0.f;
+        }
+        __syncwarp();
+        for (Walk w = items; w.r < H; w.next()) ws[w.r * B + w.c] *= inv[w.r];
+
+        for (int d0 = 0, chunk = 0; d0 < D; d0 += DC, ++chunk) {
+            const bool is_last = chunk == n_chunks - 1;
+            const int dc = is_last ? last : DC;
+            __syncwarp();                                // ws is complete; the chunk consumed
+            if (n_chunks > 1) {
+                const Walk w = is_last ? wd_last : wd_full;
+                stage_rows(hs, ld, h_nb + t * B * D + d0, D, B, w, vec_d);
+                stage_rows(ds, ld, dout + orow + d0, N * D, H, w, vec_d);
+                stage_commit();
+                stage_wait<0>();
+            }
+            if (need_ge) {
+                for (Walk w = items; w.r < H; w.next()) {
+                    const float* hr = hs + w.c * ld;
+                    const float* dr = ds + w.r * ld;
+                    float a = 0.f;
+                    if (ld4 && (dc & 3) == 0) {
+                        for (int d = 0; d < dc; d += 4) {
+                            const float4 hv = *reinterpret_cast<const float4*>(hr + d);
+                            const float4 dv = *reinterpret_cast<const float4*>(dr + d);
+                            a = fmaf(dv.x, hv.x, a);
+                            a = fmaf(dv.y, hv.y, a);
+                            a = fmaf(dv.z, hv.z, a);
+                            a = fmaf(dv.w, hv.w, a);
+                        }
+                    } else {
+                        for (int d = 0; d < dc; ++d) a = fmaf(dr[d], hr[d], a);
+                    }
+                    as[w.r * B + w.c] += a;
+                }
+            }
+            if (dh != nullptr) {
+                for (Walk w = is_last ? wh_last : wh_full; w.r < B; w.next()) {
+                    float v = 0.f;
+                    for (int h = 0; h < H; ++h) v = fmaf(ws[h * B + w.r], ds[h * ld + w.c], v);
+                    dh[(t * B + w.r) * D + d0 + w.c] = v;
+                }
+            }
+        }
+
+        if (need_ge) {
+            __syncwarp();
+            for (int h = lane; h < H; h += 32) {
+                float s = 0.f;
+#pragma unroll 4
+                for (int b = 0; b < B; ++b) s = fmaf(ws[h * B + b], as[h * B + b], s);
+                cs[h] = s;
+            }
+            __syncwarp();
+            for (Walk w = items; w.r < H; w.next()) {
+                const int i = w.r * B + w.c;
+                const float r = inv[w.r];
+                // Exact zero only for an exactly zero denominator, as the forward.
+                const float ge = r != 0.f ? (as[i] - cs[w.r]) * r : 0.f;
+                const float mv = ms[w.c];
+                if (dx != nullptr) dx[xrow + (int64_t)w.r * N * B + w.c] = ge * mv * dps[i];
+                as[i] = ge;
+                if (PQ > 0) {
+                    const float xv = xs[i];
+                    float pw = ge * mv;
+#pragma unroll
+                    for (int k = 0; k < (PQ > 0 ? PQ : 1); ++k) {
+                        if (k < P) {
+                            dq[k] += pw;
+                            pw *= xv;
+                        }
+                    }
+                }
+            }
+            if (dmask != nullptr) {
+                __syncwarp();
+                for (int b = lane; b < B; b += 32) {
+                    float s = 0.f;
+                    for (int h = 0; h < H; ++h) s = fmaf(as[h * B + b], ps[h * B + b], s);
+                    dmask[t * B + b] = s;
+                }
+            }
+        }
+        __syncwarp();                                    // this node's slice is consumed
+        n += step;                                       // the next node, without dividing
+        while (n >= N) {
+            n -= N;
+            ++g;
         }
     }
 
-    // dcoeffs: warp sums of g_e * mask * x^k, then one partial row per block.
-    if (dq_part != nullptr) {
-        const int HTB = H * TB;
-        for (int base = warp * 32; base < HTB; base += BWD_THREADS) {
-            const int i = base + lane;
-            float gp = 0.f, xv = 0.f;
-            if (i < HTB) {
-                const int h = i / TB, r = i - h * TB;
-                const int nl = r / B, b = r - nl * B;
-                if (n0 + nl < N) {
-                    const int s = (h * T + nl) * BP + b;
-                    gp = g_s[s] * m_s[nl * BP + b];
-                    xv = x_s[s];
-                }
-            }
-            float pw = gp;
-            for (int k = 0; k < P; ++k) {
-                float v = pw;
+    if (PQ > 0) {
+        // Lane sums in a fixed shuffle order, then the warps in order.
+#pragma unroll
+        for (int k = 0; k < (PQ > 0 ? PQ : 1); ++k) {
+            if (k < P) {
+                float v = dq[k];
                 for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-                if (lane == 0) dq_s[warp * CHEB_MAX_COEFFS + k] += v;
-                pw *= xv;
+                if (lane == 0) dq_s[warp * CHEB_MAX_COEFFS + k] = v;
             }
         }
         __syncthreads();
-        for (int k = tid; k < P; k += BWD_THREADS) {
+        for (int k = threadIdx.x; k < P; k += blockDim.x) {
             float s = 0.f;
             for (int w = 0; w < nwarps; ++w) s += dq_s[w * CHEB_MAX_COEFFS + k];
-            dq_part[((int64_t)blockIdx.z * gridDim.x + blockIdx.x) * P + k] = s;
+            dq_part[(int64_t)blockIdx.x * P + k] = s;
         }
     }
 }
@@ -383,26 +551,68 @@ int cheb_attn_forward(
     return (int)cudaGetLastError();
 }
 
-int cheb_attn_bwd_threads(void) { return BWD_THREADS; }
+int cheb_attn_bwd_max_warps(void) { return BWD_MAX_WARPS; }
 
-// Launches the backward on `stream`; null output pointers are skipped.
-// Returns cudaGetLastError() (0 on success).
+}  // extern "C"
+
+typedef void (*BwdKernel)(const float*, const float*, const float*, const float*, const float*,
+                          float*, float*, float*, float*, int, int, int64_t, int, int, int, int,
+                          int, int);
+
+// The instance: dcoeffs' registers cover P, none without it; the register
+// path where the shape and the cotangents allow it (see the kernel).
+static BwdKernel bwd_kernel(int P, bool want_dq, bool want_dh, int H, int B, int D, int DC) {
+    if (!want_dq && !want_dh && DC >= D && B <= 32 && (B & (B - 1)) == 0) {
+        if (H * B == 32) return &cheb_attn_bwd_kernel<0, 1>;
+        if (H * B == 64) return &cheb_attn_bwd_kernel<0, 2>;
+        if (H * B == 128) return &cheb_attn_bwd_kernel<0, 4>;
+    }
+    if (!want_dq) return &cheb_attn_bwd_kernel<0, 0>;
+    if (P <= 16) return &cheb_attn_bwd_kernel<16, 0>;
+    if (P <= 32) return &cheb_attn_bwd_kernel<32, 0>;
+    return &cheb_attn_bwd_kernel<CHEB_MAX_COEFFS, 0>;
+}
+
+static cudaError_t allow_smem(BwdKernel kernel, long long smem_bytes) {
+    if (smem_bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem_bytes);
+}
+
+extern "C" {
+
+// Blocks of `warps` warps with `smem_bytes` of shared memory that fit on one
+// SM at once (by registers, threads and shared memory), written to *out: the
+// grid-stride loop's grid is one wave of them. Every instance without
+// dcoeffs has the same register cap, so the general one answers for them.
+int cheb_attn_bwd_blocks_per_sm(int P, int want_dq, int warps, long long smem_bytes, int* out) {
+    const BwdKernel kernel = bwd_kernel(P, want_dq != 0, true, 0, 0, 0, 0);
+    cudaError_t err = allow_smem(kernel, smem_bytes);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, warps * 32,
+                                                            (size_t)smem_bytes);
+    return (int)err;
+}
+
+// Launches the backward on `stream`: `grid` blocks of `warps` warps, in a
+// grid-stride loop over the G*N nodes; null output pointers are skipped,
+// and a non-null dq_part has `grid` rows of P. vec_b / vec_d: the B- and
+// D-rows may be loaded as float4. Returns cudaGetLastError() (0 on success).
 int cheb_attn_backward(
     const void* x, const void* h_nb, const void* mask, const void* coeffs, const void* dout,
     void* dx, void* dh, void* dmask, void* dq_part,
     int G, int H, long long N, int B, int D, int P,
-    int node_tile, int group, long long smem_bytes, void* stream)
+    int warps, int d_chunk, int grid, int vec_b, int vec_d, long long smem_bytes, void* stream)
 {
-    if (smem_bytes > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            cheb_attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
-        if (err != cudaSuccess) return (int)err;
-    }
-    const dim3 grid((unsigned)((N + node_tile - 1) / node_tile), 1u, (unsigned)G);
-    cheb_attn_bwd_kernel<<<grid, BWD_THREADS, (size_t)smem_bytes, (cudaStream_t)stream>>>(
+    if (warps < 1 || warps > BWD_MAX_WARPS || d_chunk < 1 || grid < 1)
+        return (int)cudaErrorInvalidValue;
+    const BwdKernel kernel = bwd_kernel(P, dq_part != nullptr, dh != nullptr, H, B, D, d_chunk);
+    const cudaError_t err = allow_smem(kernel, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)grid, warps * 32, (size_t)smem_bytes, (cudaStream_t)stream>>>(
         (const float*)x, (const float*)h_nb, (const float*)mask, (const float*)coeffs,
         (const float*)dout, (float*)dx, (float*)dh, (float*)dmask, (float*)dq_part,
-        H, (int64_t)N, B, D, P, node_tile, group);
+        G, H, (int64_t)N, B, D, P, d_chunk, vec_b, vec_d);
     return (int)cudaGetLastError();
 }
 

@@ -3,7 +3,10 @@ training run on the card against the same run on the CPU.
 
 Tolerances: cheb_attn as ``chip_smoke.py``; the sequence kernels at the
 reference tests' own (``tests/test_kernels.py``: flash f32 2e-4/2e-5, bf16
-2e-2; poly 5e-4; wkv 1e-4).
+2e-2; poly 5e-4; wkv 1e-4). flash is also held at its tile edges (S around
+64 and 128, hd around the 64-column panels) and on both load paths (TMA,
+cp.async); the backward at the training shape, at B 1 and D 1, with D cut
+into chunks, and for every subset of the cotangents.
 
 Imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -11,6 +14,8 @@ Imports no JAX, so it also runs where only PyTorch is installed:
 
 Without a CUDA device every test skips.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -229,3 +234,136 @@ def test_cuda_bucketed_layer_takes_device_inputs():
         got = ops.cheb_attn_layer_bucketed(params, coeffs, h, idx_d, mask_d, **kwargs)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+FLASH_S = [1, 63, 64, 65, 129]
+FLASH_HD = [24, 64, 100, 128, 256]
+
+
+def _flash_check(shape, dtype, causal, want_load=None, offset=0):
+    """flash_attn on the card against its plain version at SEQ_TOL; with
+    ``offset`` the inputs start that many elements into their storage."""
+    q, k, v = (_randn((int(np.prod(shape)) + offset,), seed, dtype)[offset:].view(shape)
+               for seed in range(3))
+    flash_mod = importlib.import_module("repro_torch.kernels.flash_attn")
+    plan = flash_mod.launch_plan(shape[2], shape[3], dtype, flash_mod._alignment(q, k, v))
+    if want_load is not None:
+        assert plan["load"] == want_load
+    before = flash_attn.launches
+    got = flash_attn(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attn.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attn_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), **SEQ_TOL[dtype])
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", FLASH_S + [4096])
+@pytest.mark.parametrize("hd", FLASH_HD)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_cuda_flash_attn_tile_edges_and_load_paths(s, hd, dtype, causal):
+    """Ragged S around the 64- and 128-row tiles, hd around the 64-column
+    panels; bf16 hd 100 (200-byte rows) takes the cp.async path, the rest
+    TMA."""
+    _need_card()
+    shape = (1, 1, s, hd) if s == 4096 else (2, 3, s, hd)
+    size = 2 if dtype == torch.bfloat16 else 4
+    _flash_check(shape, dtype, causal, "tma" if (hd * size) % 16 == 0 else "cp.async")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,offset,copy_bytes", [
+    (torch.float32, 64, 1, 4), (torch.float32, 100, 3, 4), (torch.bfloat16, 64, 2, 4),
+    (torch.bfloat16, 7, 0, 2), (torch.bfloat16, 64, 1, 2), (torch.bfloat16, 130, 0, 4),
+], ids=["f32-4B-aligned", "f32-hd100-4B", "bf16-4B-aligned", "bf16-odd-hd", "bf16-2B-aligned",
+        "bf16-hd130"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_cuda_flash_attn_cp_async_path(dtype, hd, offset, copy_bytes, causal):
+    """Bases that TMA cannot take (not 16-byte aligned) and rows that are not
+    16-byte multiples go through cp.async, zero-filled past S and hd."""
+    _need_card()
+    plan = _flash_check((2, 2, 97, hd), dtype, causal, "cp.async", offset)
+    assert plan["copy_bytes"] == copy_bytes
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attn_raises_for_a_tensor_it_cannot_take():
+    """No fallback: a strided (non-contiguous) input raises, and no launch
+    is counted."""
+    _need_card()
+    q = _randn((1, 2, 32, 128), 0)[..., :64]
+    before = flash_attn.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attn(q, q, q)
+    assert flash_attn.launches == before
+
+
+def _bwd_inputs(heads, n, b, d, seed=0):
+    x, h, m = _inputs((heads,), (), n, b, d, seed)
+    x[..., 11, min(3, b - 1)], m[..., 11, min(3, b - 1)] = np.inf, 0.0   # NaN row
+    dout = np.random.default_rng(seed + 1).standard_normal((heads, n, d)).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (x, h, m, ATT16, dout)]
+
+
+BWD_SHAPES = {"train": (8, 4099, 16, 16), "b1": (8, 777, 1, 16), "d1": (8, 777, 16, 1),
+              "b1d1": (3, 300, 1, 1), "d-chunks": (16, 300, 64, 128), "opt-in": (64, 100, 96, 16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(BWD_SHAPES), ids=list(BWD_SHAPES))
+def test_cuda_backward_kernel_shapes(shape):
+    """The training shape, B 1, D 1, a tile cut into D chunks (one warp per
+    block) and one that opts in past 48 KB, against the plain backward:
+    exact zeros on the isolated row, NaN on the masked infinite score's row."""
+    _need_card()
+    heads, n, b, d = BWD_SHAPES[shape]
+    args = _bwd_inputs(heads, n, b, d)
+    before = cheb_attn_backward.launches
+    got = cheb_attn_backward(*args)
+    torch.cuda.synchronize()
+    assert cheb_attn_backward.launches == before + 1
+    want = cheb_attn_bwd_ref(*args)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-3, atol=1e-4, equal_nan=True)
+    assert (got[0][:, 5] == 0).all() and (got[1][5] == 0).all() and (got[2][5] == 0).all()
+    assert torch.isnan(got[0][:, 11]).all()
+
+
+NEEDS = [tuple(bool(i >> j & 1) for j in range(4)) for i in range(1, 16)]
+NEEDS_IDS = ["".join("1" if n else "0" for n in needs) for needs in NEEDS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("needs", NEEDS, ids=NEEDS_IDS)
+def test_cuda_backward_kernel_each_subset_of_needs(needs):
+    """Every non-empty subset of the four cotangents (training asks for dx
+    alone, the kernel engine with features needing a gradient for dx and
+    dh_nb): those asked for match the plain backward, the others are None."""
+    _need_card()
+    args = _bwd_inputs(*BWD_SHAPES["train"])
+    got = cheb_attn_backward(*args, needs=needs)
+    torch.cuda.synchronize()
+    want = cheb_attn_bwd_ref(*args, needs)
+    for need, a, w in zip(needs, got, want):
+        assert (a is None) == (not need)
+        if need:
+            torch.testing.assert_close(a, w, rtol=1e-3, atol=1e-4, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_dcoeffs_does_not_depend_on_block_order():
+    """dcoeffs sums per-block partials in a second pass, over nodes given to
+    warps in a fixed order: two runs agree bit for bit."""
+    _need_card()
+    x, h, m, coeffs, dout = _bwd_inputs(*BWD_SHAPES["train"])
+    x[:, 11] = 0.5                                               # finite dcoeffs
+    needs = (False, False, False, True)
+    first = cheb_attn_backward(x, h, m, coeffs, dout, needs)[3]
+    second = cheb_attn_backward(x, h, m, coeffs, dout, needs)[3]
+    torch.cuda.synchronize()
+    assert torch.isfinite(first).all() and torch.equal(first, second)
+    torch.testing.assert_close(first, cheb_attn_bwd_ref(x, h, m, coeffs, dout, needs)[3],
+                               rtol=1e-3, atol=1e-4)

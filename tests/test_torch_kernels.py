@@ -25,6 +25,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import cheb_attn as cheb_mod
 from repro_torch.kernels.cheb_attn import (
     MAX_COEFFS,
+    _bwd_ld,
+    backward_grid,
     backward_launch_config,
     cheb_attn,
     cheb_attn_backward,
@@ -174,10 +176,10 @@ def _grad_inputs(layout, case):
     return x, h, m, dout
 
 
-def _jax_vjp(x, h, m, dout):
+def _jax_vjp(x, h, m, dout, coeffs=ATT16):
     def vjp(x, h, m, dout):
         out, f = jax.vjp(lambda *a: jax_cheb_attn_diff(*a, 16, 8, True),
-                         jnp.asarray(x), jnp.asarray(h), jnp.asarray(m), jnp.asarray(ATT16))
+                         jnp.asarray(x), jnp.asarray(h), jnp.asarray(m), jnp.asarray(coeffs))
         return [np.asarray(c) for c in f(jnp.asarray(dout))]
 
     if x.ndim < 4:
@@ -213,6 +215,62 @@ def test_cheb_attn_gradients_match_jax_vjp_of_cheb_attn_diff(layout, case):
         assert np.isfinite(np.delete(got[0], 4, axis=-2)).all()
     else:
         assert np.isfinite(got[3]).all() and (got[0][..., 7, :] != 0).any()
+
+
+# A quadratic with a negative minimum (p(-2) = -0.5): scores near -2 give
+# negative denominators, and float32 keeps every cotangent to ~1e-6.
+QUAD = np.array([0.5, 1.0, 0.25], np.float32)
+
+
+def _factored_cotangents(x, h, m, coeffs, dout):
+    """The backward kernel's algebra (csrc/cheb_attn.cu), in float64: with
+    A = sum_d dout h_nb and c = sum_b e A / den (= sum_d dout out),
+    g_e = (A - c) / den, 0 where den == 0; then dx, dmask and dcoeffs."""
+    x4, h4, m4 = (torch.from_numpy(a).double() for a in _as_batched(x, h, m))
+    d4 = torch.from_numpy(dout).double().reshape(x4.shape[:-1] + dout.shape[-1:])
+    p, dp = torch.zeros_like(x4), torch.zeros_like(x4)
+    for q in torch.from_numpy(coeffs).double().flip(0):
+        dp = dp * x4 + p
+        p = p * x4 + q
+    mm = m4[:, None]
+    e = p * mm
+    den = e.sum(-1, keepdim=True)
+    ok = den != 0
+    a = torch.einsum("ghnd,gnbd->ghnb", d4, h4)
+    c = torch.where(ok, (e * a).sum(-1, keepdim=True) / torch.where(ok, den, 1.0), 0.0)
+    g_e = torch.where(ok, (a - c) / torch.where(ok, den, 1.0), 0.0)
+    dx = (g_e * mm * dp).reshape(x.shape)
+    dmask = (g_e * p).sum(1).reshape(m.shape)
+    dcoeffs = torch.stack([(g_e * mm * x4**k).sum() for k in range(len(coeffs))])
+    return [t.numpy() for t in (dx, dmask, dcoeffs)]
+
+
+def _as_batched(x, h, m):
+    if x.ndim == 2:
+        return x[None, None], h[None], m[None]
+    if x.ndim == 3:
+        return x[None], h[None], m[None]
+    return x, h, m
+
+
+@pytest.mark.parametrize("layout", ["2d", "3d", "4d"])
+def test_factored_g_e_matches_autograd_and_jax_vjp(layout):
+    """The kernel never forms ``out``: it factors g_e through A and c. That
+    algebra, in float64, against torch.autograd through the plain forward
+    (float64) and jax.vjp of the reference's cheb_attn_diff (float32), with
+    an isolated row (den == 0) and a row of negative denominators."""
+    x, h, m, dout = _grad_inputs(layout, "negative")
+    x[..., 7, :] = -2.0                         # p(-2) = -0.5 < 0 on every neighbour
+    got = _factored_cotangents(x, h, m, QUAD, dout)
+    assert (got[0][..., 5, :] == 0).all() and (got[1][..., 5, :] == 0).all()
+    assert (np.take(x, 7, axis=-2) == -2.0).all()
+    leaves = [torch.from_numpy(a).double().requires_grad_() for a in (x, m, QUAD)]
+    out = cheb_attn_ref(leaves[0], torch.from_numpy(h).double(), leaves[1], leaves[2])
+    auto = [g.numpy() for g in torch.autograd.grad(out, leaves, torch.from_numpy(dout).double())]
+    jx = _jax_vjp(x, h, m, dout, QUAD)
+    for name, a, b, c in zip(("dx", "dmask", "dcoeffs"), got, auto, (jx[0], jx[2], jx[3])):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5, err_msg=f"{name} vs autograd")
+        np.testing.assert_allclose(a, c, rtol=1e-5, atol=1e-5, err_msg=f"{name} vs jax.vjp")
 
 
 @pytest.mark.parametrize("layout", ["2d", "3d", "4d"])
@@ -257,19 +315,62 @@ def test_kernel_engine_gradients_match_the_direct_engine_with_features_needing_g
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=5e-3, atol=5e-4)
 
 
+def _bwd_per_warp(heads, b, dc):
+    """Bytes of one warp's slice in csrc/cheb_attn.cu's backward."""
+    def r4(n):
+        return -(-n // 4) * 4
+
+    ld = _bwd_ld(dc)
+    floats = 5 * r4(heads * b) + r4(b) + r4(b * ld) + r4(heads * ld) + 2 * r4(heads)
+    return 4 * (floats + MAX_COEFFS)
+
+
 @pytest.mark.parametrize("heads,b,d", [(8, 16, 16), (8, 24, 48), (1, 8, 1), (3, 5, 300), (16, 64, 128)])
 def test_backward_launch_config_fits_the_block(heads, b, d):
-    node_tile, group, smem = backward_launch_config(heads, b, d)
-    assert 1 <= node_tile <= 32
-    assert group & (group - 1) == 0 and min(d, 32) <= group <= 32
-    per_node = 4 * (heads + (b | 1) + 3 * heads * (b | 1) + 2 * heads * d)
-    assert smem == 4 * MAX_COEFFS * 9 + node_tile * per_node
-    assert smem <= 48 * 1024 or node_tile == 1
+    """One warp per node: the slice formula of csrc/cheb_attn.cu, at most 8
+    warps, within the default 48 KB, and D cut into chunks only when the
+    whole tile does not fit (the (16, 64, 128) case)."""
+    warps, d_chunk, smem = backward_launch_config(heads, b, d)
+    per_warp = _bwd_per_warp(heads, b, d_chunk)
+    assert 1 <= warps <= 8 and 1 <= d_chunk <= d
+    assert smem == 4 * MAX_COEFFS + warps * per_warp
+    assert smem <= 48 * 1024
+    assert warps == 8 or 4 * MAX_COEFFS + (warps + 1) * per_warp > 48 * 1024
+    if d_chunk < d:
+        assert d_chunk % 32 == 0 and 4 * MAX_COEFFS + _bwd_per_warp(heads, b, d) > 48 * 1024
 
 
 def test_backward_launch_config_rejects_oversized_rows():
     with pytest.raises(ValueError, match="shared memory"):
         backward_launch_config(64, 1024, 16)
+
+
+def test_backward_launch_config_of_the_training_shape():
+    """sbm_1m layer 1 (H8 B16 D16): the whole tile in one chunk at a row
+    stride of 20 floats, 8 warps of 4.9 KB slices; the grid is one wave of
+    the blocks that fit."""
+    assert [_bwd_ld(c) for c in (16, 48, 96, 12, 7, 1)] == [20, 52, 100, 20, 7, 1]
+    warps, d_chunk, smem = backward_launch_config(8, 16, 16)
+    assert (warps, d_chunk) == (8, 16)
+    floats = 5 * 128 + 16 + 16 * 20 + 8 * 20 + 2 * 8
+    assert smem == 4 * MAX_COEFFS + 8 * 4 * (floats + MAX_COEFFS)
+    assert backward_grid(10**6, warps, 4, sm_count=132) == 132 * 4
+
+
+def test_backward_launch_config_opts_in_past_the_default_block():
+    """A node whose scores alone outgrow 48 KB opts in to more shared
+    memory, below the 227 KB a block can have, with the whole tile."""
+    warps, d_chunk, smem = backward_launch_config(64, 96, 16)
+    assert (warps, d_chunk) == (1, 16) and 48 * 1024 < smem <= 227 * 1024
+
+
+@pytest.mark.parametrize("nodes,warps,per_sm,want", [
+    (10, 8, 4, 2), (4099, 8, 4, 513), (10**6, 1, 1, 132), (10**6, 6, 3, 396), (10**6, 8, 0, 132),
+])
+def test_backward_grid_is_at_most_one_wave(nodes, warps, per_sm, want):
+    """One wave of the blocks the occupancy query says fit (at least one
+    per SM), fewer when there are fewer nodes than warps."""
+    assert backward_grid(nodes, warps, per_sm, sm_count=132) == want
 
 
 def test_backward_raises_when_the_library_cannot_load(monkeypatch):

@@ -396,6 +396,65 @@ def test_wkv_shared_memory_matches_the_kernel_limits():
     assert wkv.shared_bytes(wkv.MAX_HEAD_DIM, 64) > wkv._SMEM_MAX
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_launch_plan_fits_shared_memory_for_every_head_dim(dtype):
+    """Every hd in 1..256: the query tile and two stages of key and value
+    tiles fit the 227 KB a block can have, hd pads to whole 128-byte panels
+    (64 bf16 or 32 float32 columns; 64 at least), and the block is 16
+    (bf16) or 32 (float32 up to hd 128) query rows per consumer warp plus a
+    producer warpgroup."""
+    plan_of = MODULES["flash_attn"].launch_plan
+    size = 2 if dtype == torch.bfloat16 else 4
+    for hd in range(1, 257):
+        plan = plan_of(4096, hd, dtype)
+        assert plan["smem_bytes"] <= 227 * 1024, hd
+        assert plan["smem_bytes"] == 2048 + (plan["block_m"] + 4 * plan["block_n"]) * \
+            plan["hd_pad"] * size
+        assert hd <= plan["hd_pad"] < hd + 128 and plan["hd_pad"] % 64 == 0
+        assert plan["rows_per_warp"] == (16 if size == 2 or plan["hd_pad"] == 256 else 32)
+        assert plan["threads"] == 32 * (plan["block_m"] // plan["rows_per_warp"]) + 128
+        assert plan["block_n"] % (16 if size == 2 else 8) == 0
+        assert plan["blocks_per_head"] == -(-4096 // plan["block_m"])
+        assert plan["mma"] == ("wgmma" if size == 2 else "mma.sync 3xTF32")
+
+
+@pytest.mark.parametrize("align", [16, 8, 4, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_launch_plan_takes_tma_exactly_when_a_descriptor_describes_the_tensor(dtype, align):
+    """TMA exactly when hd * itemsize is a multiple of 16 bytes and the base
+    pointers are 16-byte aligned; otherwise cp.async, with 4-byte copies
+    unless bf16 rows are not 4-byte granular."""
+    plan_of = MODULES["flash_attn"].launch_plan
+    size = 2 if dtype == torch.bfloat16 else 4
+    for hd in range(1, 257):
+        plan = plan_of(130, hd, dtype, align)
+        tma = (hd * size) % 16 == 0 and align % 16 == 0
+        assert (plan["load"] == "tma") == tma, hd
+        if not tma:
+            word = size == 4 or (hd % 2 == 0 and align % 4 == 0)
+            assert plan["copy_bytes"] == (4 if word else 2), hd
+
+
+def test_flash_launch_plan_refuses_what_the_kernel_does_not_take():
+    plan_of = MODULES["flash_attn"].launch_plan
+    with pytest.raises(ValueError, match="head dim"):
+        plan_of(16, 257, torch.float32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        plan_of(16, 64, torch.float16)
+
+
+def test_flash_alignment_reads_the_base_pointers():
+    """The wrapper's alignment, from which launch_plan picks the load path:
+    a contiguous view one float past an allocation is 4-byte aligned only."""
+    align_of = MODULES["flash_attn"]._alignment
+    base = torch.empty(1 + 2 * 3 * 8 * 4)
+    assert base.data_ptr() % 16 == 0
+    view = base[1:].view(2, 3, 8, 4)
+    assert view.is_contiguous() and align_of(base) == 16
+    assert align_of(base, view) == 4
+    assert align_of(base.bfloat16()[1:]) == 2
+
+
 def test_ops_all_mirrors_the_reference():
     """Every name of ``repro.kernels.ops.__all__`` that the port has, and no
     other; the three left out drive the TPU's block model and interpret mode,
