@@ -13,7 +13,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    on the inputs the serving path gives it for the ``sbm_1m`` graph (H8
    N1e6 B16 D16, p=16), with isolated rows and negative-denominator rows
    spliced in, and on ragged 2-D, 3-D and 4-D layouts. Each kernel is timed
-   (median of CUDA-event timings) beside its plain version and its bound.
+   (CUDA events around back-to-back calls) beside its plain version and its
+   bound.
    The backward kernel likewise, all four cotangents against the plain
    backward and ``dx`` against ``torch.autograd`` through the plain forward,
    at the sbm_1m training shape from a real layer-1 input (with isolated and
@@ -59,7 +60,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -139,20 +139,22 @@ def sass_mma_counts(lib) -> dict:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` CUDA-event timed calls."""
+    """Device time of one call of ``fn``: CUDA events around ``reps``
+    back-to-back calls, over ``reps``. The host prepares each launch while
+    the card runs the one before, so a wrapper's host time shows only where
+    it exceeds the work on the card; timing single calls from an idle card
+    adds it to every kernel."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def cheb_attn_bound_ms(x, h_nb, mask, coeffs, out):

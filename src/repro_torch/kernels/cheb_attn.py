@@ -114,6 +114,7 @@ def _bwd_ld(dc: int) -> int:
     return 4 * (q + 1 - (q & 1))
 
 
+@functools.lru_cache(maxsize=None)
 def backward_launch_config(heads: int, b: int, d: int) -> Tuple[int, int, int]:
     """``(warps, d_chunk, smem_bytes)`` for one backward launch.
 

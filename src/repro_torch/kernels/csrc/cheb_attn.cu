@@ -331,32 +331,41 @@ __global__ void __launch_bounds__(BWD_MAX_WARPS * 32, PQ > 0 ? 2 : 4) cheb_attn_
                 float den = e;
                 for (int off = B >> 1; off > 0; off >>= 1)
                     den += __shfl_xor_sync(0xffffffffu, den, off);
-                r[j] = den != 0.f ? 1.f / den : 0.f;
+                r[j] = den != 0.f ? __frcp_rn(den) : 0.f;     // 1 / den, rounded as 1.f / den
                 w[j] = e * r[j];
-                const float* hr = hs + b * ld;
-                const float* dr = ds + (h0 + j * dh_step) * ld;
-                if (ld4) {
-                    for (int d = 0; d < D; d += 4) {
-                        const float4 hv = *reinterpret_cast<const float4*>(hr + d);
-                        const float4 dv = *reinterpret_cast<const float4*>(dr + d);
+            }
+            // A for the lane's items: one h_nb row (b) against IPL dout rows,
+            // the row loaded once per step and the IPL sums independent.
+            const float* hr = hs + b * ld;
+            const float* dr = ds + h0 * ld;
+            const int dstep = dh_step * ld;
+            if (ld4) {
+                for (int d = 0; d < D; d += 4) {
+                    const float4 hv = *reinterpret_cast<const float4*>(hr + d);
+#pragma unroll
+                    for (int j = 0; j < IPL; ++j) {
+                        const float4 dv = *reinterpret_cast<const float4*>(dr + j * dstep + d);
                         a[j] = fmaf(dv.x, hv.x, a[j]);
                         a[j] = fmaf(dv.y, hv.y, a[j]);
                         a[j] = fmaf(dv.z, hv.z, a[j]);
                         a[j] = fmaf(dv.w, hv.w, a[j]);
                     }
-                } else {
-                    for (int d = 0; d < D; ++d) a[j] = fmaf(dr[d], hr[d], a[j]);
                 }
+            } else {
+                for (int d = 0; d < D; ++d)
+#pragma unroll
+                    for (int j = 0; j < IPL; ++j) a[j] = fmaf(dr[j * dstep + d], hr[d], a[j]);
             }
             float dm = 0.f;
+            float* dxp = dx != nullptr ? dx + xrow + (int64_t)h0 * N * B + b : nullptr;
+            const int64_t dx_step = (int64_t)dh_step * N * B;
 #pragma unroll
             for (int j = 0; j < IPL; ++j) {
                 float c = w[j] * a[j];
                 for (int off = B >> 1; off > 0; off >>= 1)
                     c += __shfl_xor_sync(0xffffffffu, c, off);
                 const float ge = r[j] != 0.f ? (a[j] - c) * r[j] : 0.f;
-                if (dx != nullptr)
-                    dx[xrow + (int64_t)(h0 + j * dh_step) * N * B + b] = ge * mv * dp[j];
+                if (dx != nullptr) dxp[j * dx_step] = ge * mv * dp[j];
                 dm = fmaf(ge, p[j], dm);
             }
             if (dmask != nullptr) {
@@ -413,7 +422,7 @@ __global__ void __launch_bounds__(BWD_MAX_WARPS * 32, PQ > 0 ? 2 : 4) cheb_attn_
             float s = 0.f;
 #pragma unroll 4
             for (int b = 0; b < B; ++b) s += ws[h * B + b];
-            inv[h] = s != 0.f ? 1.f / s : 0.f;
+            inv[h] = s != 0.f ? __frcp_rn(s) : 0.f;
         }
         __syncwarp();
         for (Walk w = items; w.r < H; w.next()) ws[w.r * B + w.c] *= inv[w.r];

@@ -25,6 +25,7 @@ so any S is taken.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -70,6 +71,7 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+@functools.lru_cache(maxsize=None)
 def _tiles(hd: int, dtype: torch.dtype) -> dict:
     """FlashCfg of csrc/flash_attn.cu: hd padded to a multiple of the
     64-column wgmma panel; query rows per block, per consumer warp (16 for
@@ -108,7 +110,7 @@ def launch_plan(s: int, hd: int, dtype: torch.dtype, align: int = 16) -> dict:
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attn: head dim {hd} is outside 1..{MAX_HEAD_DIM}")
     size = 2 if dtype == torch.bfloat16 else 4
-    plan = _tiles(hd, dtype)
+    plan = dict(_tiles(hd, dtype))
     tma = (hd * size) % 16 == 0 and align % 16 == 0
     word = size == 4 or (hd % 2 == 0 and align % 4 == 0)
     plan.update(
