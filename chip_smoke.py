@@ -13,8 +13,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    on the inputs the serving path gives it for the ``sbm_1m`` graph (H8
    N1e6 B16 D16, p=16), with isolated rows and negative-denominator rows
    spliced in, and on ragged 2-D, 3-D and 4-D layouts. Each kernel is timed
-   (CUDA events around back-to-back calls) beside its plain version and its
-   bound.
+   (median of CUDA-event timings) beside its plain version and its bound.
    The backward kernel likewise, all four cotangents against the plain
    backward and ``dx`` against ``torch.autograd`` through the plain forward,
    at the sbm_1m training shape from a real layer-1 input (with isolated and
@@ -60,6 +59,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -139,22 +139,20 @@ def sass_mma_counts(lib) -> dict:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device time of one call of ``fn``: CUDA events around ``reps``
-    back-to-back calls, over ``reps``. The host prepares each launch while
-    the card runs the one before, so a wrapper's host time shows only where
-    it exceeds the work on the card; timing single calls from an idle card
-    adds it to every kernel."""
+    """Median device time of ``fn`` over ``reps`` CUDA-event timed calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    times = []
     for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def cheb_attn_bound_ms(x, h_nb, mask, coeffs, out):
@@ -685,14 +683,21 @@ def main() -> None:
     del x2, m2
     ms_bwd = cuda_ms(lambda: cheb_attn_backward(x, h_nb, mask_f, coeffs, dout, dx_only))
     ms_bwd_all = cuda_ms(lambda: cheb_attn_backward(x, h_nb, mask_f, coeffs, dout), reps=5)
+    # Each cotangent alone: where the all-four request's time goes.
+    ms_bwd_each = {name: cuda_ms(lambda: cheb_attn_backward(
+        x, h_nb, mask_f, coeffs, dout, tuple(i == j for j in range(4))), reps=5)
+        for i, name in enumerate(("dx", "dh_nb", "dmask", "dcoeffs"))}
     ms_bwd_plain = cuda_ms(lambda: cheb_attn_bwd_ref(x, h_nb, mask_f, coeffs, dout, dx_only),
                            reps=5, warmup=1)
     bwd_bound_ms, bwd_bound_by, bwd_bytes = cheb_attn_bwd_bound_ms(
         x, h_nb, mask_f, coeffs, dout, dx_only)
+    all_bound_ms = cheb_attn_bwd_bound_ms(x, h_nb, mask_f, coeffs, dout, (True,) * 4)[0]
+    each = ", ".join(f"{k} {v:.4f}" for k, v in ms_bwd_each.items())
     print(f"cheb_attn backward train shape (dx only): kernel {ms_bwd:.4f} ms, plain "
           f"{ms_bwd_plain:.4f} ms, bound {bwd_bound_ms:.4f} ms ({bwd_bound_by}, "
           f"{bwd_bytes / 1e9:.3f} GB), {bwd_bytes / (ms_bwd * 1e-3) / 1e12:.3f} TB/s achieved; "
-          f"all four cotangents {ms_bwd_all:.4f} ms; no single PyTorch call computes this "
+          f"all four cotangents {ms_bwd_all:.4f} ms (bound {all_bound_ms:.4f} ms); each alone "
+          f"(ms): {each}; no single PyTorch call computes this "
           "function, so library_ms is null", flush=True)
     del x, h_nb, mask_f, dout
     torch.cuda.empty_cache()

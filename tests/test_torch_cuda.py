@@ -353,6 +353,41 @@ def test_cuda_backward_kernel_each_subset_of_needs(needs):
             torch.testing.assert_close(a, w, rtol=1e-3, atol=1e-4, equal_nan=True)
 
 
+# Shapes that take the register path (B a power of two up to 32, H*B 32, 64
+# or 128, one D chunk) for every instance: H*B 32 (one item per lane), 64
+# (two) and 128 (four), B from 2 to 32, and a D that is no multiple of 4
+# (the h_nb and dout rows read one float at a time).
+REGISTER_SHAPES = {"hb32-h2b16": (2, 1001, 16, 16), "hb32-h1b32": (1, 1001, 32, 16),
+                   "hb32-h16b2": (16, 1001, 2, 16), "hb64-h8b8": (8, 1001, 8, 16),
+                   "hb64-h4b16": (4, 1001, 16, 12), "hb128-h32b4": (32, 1001, 4, 8),
+                   "hb128-d15": (8, 1001, 16, 15)}
+REGISTER_NEEDS = [(True, False, False, False), (False, False, True, False),
+                  (True, False, True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("needs", REGISTER_NEEDS, ids=["dx", "dmask", "dx-dmask"])
+@pytest.mark.parametrize("shape", list(REGISTER_SHAPES), ids=list(REGISTER_SHAPES))
+def test_cuda_backward_register_path_instances(shape, needs):
+    """The requests without dh_nb and dcoeffs, at shapes that run each
+    instance of the register path, against the plain backward: exact zeros
+    on the isolated row, NaN on the masked infinite score's row."""
+    _need_card()
+    heads, n, b, d = REGISTER_SHAPES[shape]
+    args = _bwd_inputs(heads, n, b, d)
+    got = cheb_attn_backward(*args, needs=needs)
+    torch.cuda.synchronize()
+    want = cheb_attn_bwd_ref(*args, needs)
+    for need, a, w in zip(needs, got, want):
+        assert (a is None) == (not need)
+        if need:
+            torch.testing.assert_close(a, w, rtol=1e-3, atol=1e-4, equal_nan=True)
+    if needs[0]:
+        assert (got[0][:, 5] == 0).all() and torch.isnan(got[0][:, 11]).all()
+    if needs[2]:
+        assert (got[2][5] == 0).all()
+
+
 @pytest.mark.cuda
 def test_cuda_backward_dcoeffs_does_not_depend_on_block_order():
     """dcoeffs sums per-block partials in a second pass, over nodes given to
