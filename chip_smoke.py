@@ -7,13 +7,16 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. Environment: versions, the card's name and power limit, and the build of
    every CUDA kernel under ``src/repro_torch/kernels/csrc`` (one ``nvcc``
    each, started together), with each kernel's registers and spills and
-   the tensor-core instructions (wgmma, mma.sync) in the flash and
-   cheb_attn libraries.
+   the tensor-core instructions (wgmma, mma.sync) in the flash, poly and
+   cheb_attn libraries; poly's must hold HGMMA (bf16) and
+   HMMA.1688.F32.TF32 (float32).
 2. Kernels against their plain PyTorch versions on the card: ``cheb_attn``
    on the inputs the serving path gives it for the ``sbm_1m`` graph (H8
    N1e6 B16 D16, p=16), with isolated rows and negative-denominator rows
    spliced in, and on ragged 2-D, 3-D and 4-D layouts. Each kernel is timed
-   (median of CUDA-event timings) beside its plain version and its bound.
+   (median of CUDA-event timings) beside its plain version and its bound;
+   the forward's ``launch_plan`` at the serving shape (which must take the
+   TMA path) is printed with its wrapper's host time per call.
    The backward kernel likewise, all four cotangents against the plain
    backward and ``dx`` against ``torch.autograd`` through the plain forward,
    at the sbm_1m training shape from a real layer-1 input (with isolated and
@@ -45,8 +48,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    (``BF16_TOL``); ``cheb_attn`` on each bucket's inputs against its plain
    version, and the bucketed layer against the flat one; each kernel timed
    beside its plain version, its bound and, for flash,
-   ``scaled_dot_product_attention``; flash's ``launch_plan`` (tiles, load
-   path) is printed for both dtypes.
+   ``scaled_dot_product_attention``; flash's and poly's ``launch_plan``
+   (tiles, load path) are printed for both dtypes, and each of the bucketed
+   layer's cheb_attn launches is timed on its own inputs with its plan.
 
 The second-to-last line is a JSON object describing each kernel
 (``launches``: cheb_attn's over the serving, training and kernel-API
@@ -181,6 +185,34 @@ def cheb_attn_bwd_bound_ms(x, h_nb, mask, coeffs, dout, needs):
     flops = x.numel() * per_score
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def wrapper_host_ms(fn, calls: int = 50) -> float:
+    """Median host time of one call of ``fn`` (a kernel wrapper), on the host
+    clock without a sync: what the wrapper spends before the launch
+    returns. The calls queue on the card and are drained at the end."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def fwd_plan(x, h_nb, mask):
+    """The cheb_attn forward's launch_plan for these inputs (as batched
+    layouts), as the wrapper computes it."""
+    import importlib
+
+    from repro_torch.kernels.ref import _batched4
+
+    mod = importlib.import_module("repro_torch.kernels.cheb_attn")
+
+    x4, h4, m4 = _batched4(x, h_nb, mask)
+    return mod.launch_plan(x4.shape[1], x4.shape[3], h4.shape[3], mod._aligned(x4, h4, m4))
 
 
 def row_denominator(x, mask, coeffs, i):
@@ -415,11 +447,18 @@ def kernel_api_phase(dev, g, params, coeffs, h, nbr_idx, nbr_mask):
     plan_dev = [(torch.as_tensor(rows, device=dev), cap) for rows, cap in plan]
     torch.cuda.synchronize()
 
+    import importlib
+
     from repro_torch.kernels.flash_attn import _alignment, launch_plan
 
+    poly_plan = importlib.import_module("repro_torch.kernels.poly_attn").launch_plan
     for qq in (qb, q):
-        print(f"flash_attn launch_plan {tuple(qq.shape)} {str(qq.dtype).replace('torch.', '')}: "
-              f"{launch_plan(s, hd, qq.dtype, _alignment(qq, kb if qq is qb else k))}", flush=True)
+        kk = kb if qq is qb else k
+        dt = str(qq.dtype).replace('torch.', '')
+        print(f"flash_attn launch_plan {tuple(qq.shape)} {dt}: "
+              f"{launch_plan(s, hd, qq.dtype, _alignment(qq, kk))}", flush=True)
+        print(f"poly_attn launch_plan {tuple(qq.shape)} {dt}: "
+              f"{poly_plan(s, hd, qq.dtype, _alignment(kk))}", flush=True)
     counters = (flash_attn, poly_attn, wkv_chunked, cheb_attn)
     for fn in counters:
         fn.launches = 0
@@ -474,10 +513,23 @@ def kernel_api_phase(dev, g, params, coeffs, h, nbr_idx, nbr_mask):
                                 close("wkv S_final vs scan oracle", sf, rsf, *WKV_TOL)]
         del ry, rsf, y, sf
         from repro_torch.kernels.ops import cheb_attn_layer
+        from repro_torch.kernels.ref import cheb_attn_ref
         x, h_nb, mask_f = layer1_inputs(params, h, nbr_idx, nbr_mask)
-        bucket_kernel_err = max(compare_cheb_attn(
-            f"bucket cap {cap}", x[:, rows, :cap].contiguous(), h_nb[rows, :cap].contiguous(),
-            mask_f[rows, :cap].contiguous(), coeffs) for rows, cap in plan_dev)
+        bucket_kernel_err, bucket_rows = 0.0, []
+        for rows, cap in plan_dev:
+            xb_, hb_, mb_ = (x[:, rows, :cap].contiguous(), h_nb[rows, :cap].contiguous(),
+                             mask_f[rows, :cap].contiguous())
+            bucket_kernel_err = max(bucket_kernel_err, compare_cheb_attn(
+                f"bucket cap {cap}", xb_, hb_, mb_, coeffs))
+            # Each bucket's launch timed on its own inputs, beside its plan and bound.
+            ob_ = cheb_attn(xb_, hb_, mb_, coeffs)
+            bms, by, nbytes = cheb_attn_bound_ms(xb_, hb_, mb_, coeffs, ob_)
+            bucket_rows.append(dict(
+                cap=cap, rows=int(rows.numel()), plan=fwd_plan(xb_, hb_, mb_),
+                ms=cuda_ms(lambda: cheb_attn(xb_, hb_, mb_, coeffs)),
+                plain_ms=cuda_ms(lambda: cheb_attn_ref(xb_, hb_, mb_, coeffs), reps=5, warmup=1),
+                bound_ms=bms, bound_by=by, gb=nbytes / 1e9))
+            del xb_, hb_, mb_, ob_
         del x, h_nb, mask_f
         flat = cheb_attn_layer(params, coeffs, h, nbr_idx, nbr_mask)
         bucket_err = close("bucketed vs flat layer (sbm_1m)", out.pop("bucketed"), flat,
@@ -516,6 +568,10 @@ def kernel_api_phase(dev, g, params, coeffs, h, nbr_idx, nbr_mask):
                else f"scaled_dot_product_attention {row['library_ms']:.4f} ms")
         print(f"{name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
               f"{bms:.4f} ms ({by}), library {lib}; {smi}", flush=True)
+    for b in bucket_rows:
+        print(f"cheb_attn bucket cap {b['cap']} ({b['rows']} rows): kernel {b['ms']:.4f} ms, "
+              f"plain {b['plain_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+              f"{b['gb']:.3f} GB), launch_plan {b['plan']}; {smi}", flush=True)
     print(f"wkv scan oracle (wkv_ref, {s_w} Python steps): {scan_s:.2f} s wall; "
           f"sbm_1m layer 1: bucketed {ms_bucketed:.3f} ms, flat {ms_flat:.3f} ms; {smi}",
           flush=True)
@@ -531,10 +587,13 @@ def kernel_api_phase(dev, g, params, coeffs, h, nbr_idx, nbr_mask):
     flash = entry("flash_attn", rows["flash_attn bf16"])
     flash.update(ms_f32=rows["flash_attn f32"]["ms"],
                  library_ms_f32=rows["flash_attn f32"]["library_ms"])
-    return {"flash_attn": flash,
-            "poly_attn": entry("poly_attn", rows["poly_attn f32"]),
+    poly = entry("poly_attn", rows["poly_attn f32"])
+    poly.update(ms_bf16=rows["poly_attn bf16"]["ms"],
+                plain_ms_bf16=rows["poly_attn bf16"]["plain_ms"])
+    return {"flash_attn": flash, "poly_attn": poly,
             "wkv_chunked": entry("wkv_chunked", rows["wkv_chunked f32"])}, \
-        len(plan), bucket_kernel_err, bucket_err
+        len(plan), bucket_kernel_err, bucket_err, \
+        {f"cap {b['cap']}": b["ms"] for b in bucket_rows}
 
 
 def main() -> None:
@@ -565,8 +624,12 @@ def main() -> None:
     for name, info in sorted(_build.build_info.items()):
         print(f"  {name}: nvcc {info['seconds']:.2f}s; "
               + "; ".join(ptxas_summary(str(info["ptxas"]))), flush=True)
-    for name in ("flash_attn", "cheb_attn"):
-        print(f"  {name} SASS tensor-core instructions: {sass_mma_counts(libs[name])}", flush=True)
+    for name in ("flash_attn", "poly_attn", "cheb_attn"):
+        counts = sass_mma_counts(libs[name])
+        print(f"  {name} SASS tensor-core instructions: {counts}", flush=True)
+        if name == "poly_attn" and not (any(k.startswith("HGMMA.") for k in counts)
+                                        and "HMMA.1688.F32.TF32" in counts):
+            fail("poly_attn's library lacks HGMMA (bf16) or HMMA.1688.F32.TF32 (float32)")
 
     # -- set-up: the sbm_1m graph and the model's weights ------------------
     t0 = time.perf_counter()
@@ -610,6 +673,13 @@ def main() -> None:
 
         out = cheb_attn(x, h_nb, mask_f, coeffs)
         ms_kernel = cuda_ms(lambda: cheb_attn(x, h_nb, mask_f, coeffs))
+        host_ms = wrapper_host_ms(lambda: cheb_attn(x, h_nb, mask_f, coeffs))
+        fwd_load = fwd_plan(x, h_nb, mask_f)["load"]
+        if fwd_load != "tma":
+            fail(f"cheb_attn at the serve shape takes the {fwd_load} path, not TMA")
+        print(f"cheb_attn serve shape: launch_plan {fwd_plan(x, h_nb, mask_f)}; wrapper host "
+              f"time {host_ms:.4f} ms per call (host clock, no sync, median of 50) beside its "
+              f"single-call median {ms_kernel:.4f} ms", flush=True)
         ms_plain = cuda_ms(lambda: cheb_attn_ref(x, h_nb, mask_f, coeffs), reps=5, warmup=1)
         bound_ms, bound_by, nbytes = cheb_attn_bound_ms(x, h_nb, mask_f, coeffs, out)
         print(f"cheb_attn serve shape: kernel {ms_kernel:.4f} ms, plain {ms_plain:.4f} ms, "
@@ -834,7 +904,7 @@ def main() -> None:
     # -- phase 5: the kernel API at two zoo models' widths ----------------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    api, bucket_launches, bucket_kernel_err, bucket_err = kernel_api_phase(
+    api, bucket_launches, bucket_kernel_err, bucket_err, bucket_ms = kernel_api_phase(
         dev, g, params[0], coeffs, h, nbr_idx, nbr_mask)
     print(f"kernel API phase: {time.perf_counter() - t0:.1f}s")
     print(f"total {time.perf_counter() - t_start:.1f}s")
@@ -850,6 +920,9 @@ def main() -> None:
                              "kernel_api": bucket_launches},
         "max_abs_err": max(errs + [bucket_kernel_err]),
         "bucketed_vs_flat_err": bucket_err,
+        "load": fwd_load,
+        "host_ms": host_ms,
+        "bucket_ms": bucket_ms,
         "ms": ms_kernel,
         "plain_ms": ms_plain,
         "bound_ms": bound_ms,

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled on first use into a shared library with
 a plain C interface, under ``build/kernels/`` at the root of the checkout
 (listed in ``.gitignore``). The library's file name carries a digest of its
-source and flags, so an edited source is rebuilt and a stale library is
-never loaded. Several sources build in parallel, one ``nvcc`` each.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. Several
+sources build in parallel, one ``nvcc`` each.
 """
 from __future__ import annotations
 
@@ -47,8 +48,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a digest of the source,
+    of every header under ``csrc/`` (a source may include any of them) and
+    of the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -6,11 +6,16 @@ Replaces the Pallas TPU kernel ``repro/kernels/cheb_attn.py::cheb_attn``
 kernels in ``csrc/cheb_attn.cu``. The forward kernel is bound by memory
 (it reads the scores, the neighbour features and the mask once and writes
 the output once; ~2.1 GB, ~0.63 ms at 3.35 TB/s for the sbm_1m serving
-shape). Its design: one block per node tile x feature tile with every
-head inside the block, so each neighbour-feature tile is read from device
-memory once for all heads; the polynomial weights and denominators of the
-tile live in shared memory. The backward kernel recomputes the weights and
-denominators instead of saving them, one warp per node in a grid-stride
+shape). Its design: a persistent grid of one wave walks tiles of
+consecutive nodes; a producer warp per block keeps a ring of two stages
+in shared memory filled by 1-D bulk copies (each tile's score segments,
+neighbour span and mask span), or by cp.async where a bulk copy cannot
+take them, while consumer warps compute one node at a time, every head
+inside the block, so each neighbour tile is read from device memory once
+for all heads. :func:`launch_plan` gives the tile, the warps, the shared
+memory and the load path of a call. The backward kernel recomputes the
+weights and denominators instead of saving them, one warp per node in a
+grid-stride
 loop: each node's scores, neighbour tile and dout are read from device
 memory once into the warp's slice of shared memory, and the cotangent of
 the weights is factored into two small products so that the output is
@@ -37,7 +42,9 @@ from repro_torch.kernels._launch import check_cuda_inputs, raise_on
 from repro_torch.kernels.ref import cheb_attn_bwd_ref, cheb_attn_ref
 
 MAX_COEFFS = 64                     # CHEB_MAX_COEFFS in csrc/cheb_attn.cu
-_THREADS = 256
+_FWD_MAX_WARPS = 8                  # FWD_MAX_WARPS in csrc/cheb_attn.cu
+_FWD_STAGES = 2                     # FWD_STAGES in csrc/cheb_attn.cu
+_FWD_STAGE_BUDGET = 32 * 1024       # a stage's bytes, so that three blocks fit an SM
 _BWD_MAX_WARPS = 8                  # BWD_MAX_WARPS in csrc/cheb_attn.cu
 _SMEM_DEFAULT = 48 * 1024           # dynamic shared memory without opt-in
 _SMEM_MAX = 227 * 1024              # H100: most a block can opt in to
@@ -53,9 +60,18 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_void_p,
         ]
         lib.cheb_attn_forward.restype = ctypes.c_int
+        lib.cheb_attn_fwd_smem.argtypes = [ctypes.c_int] * 5
+        lib.cheb_attn_fwd_smem.restype = ctypes.c_longlong
+        lib.cheb_attn_fwd_max_warps.argtypes = []
+        lib.cheb_attn_fwd_max_warps.restype = ctypes.c_int
+        lib.cheb_attn_fwd_blocks_per_sm.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.cheb_attn_fwd_blocks_per_sm.restype = ctypes.c_int
         lib.cheb_attn_backward.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -79,29 +95,81 @@ def _library() -> ctypes.CDLL:
             raise RuntimeError("csrc/cheb_attn.cu and cheb_attn.py disagree on MAX_COEFFS")
         if lib.cheb_attn_bwd_max_warps() != _BWD_MAX_WARPS:
             raise RuntimeError("csrc/cheb_attn.cu and cheb_attn.py disagree on BWD_MAX_WARPS")
+        if lib.cheb_attn_fwd_max_warps() != _FWD_MAX_WARPS:
+            raise RuntimeError("csrc/cheb_attn.cu and cheb_attn.py disagree on FWD_MAX_WARPS")
+        for shape in ((8, 16, 16), (8, 8, 16), (3, 5, 300), (1, 8, 1), (16, 64, 128)):
+            plan = launch_plan(*shape, aligned=True)
+            got = lib.cheb_attn_fwd_smem(shape[0], shape[1], plan["tile"], plan["d_chunk"],
+                                         plan["warps"])
+            if got != plan["smem_bytes"]:
+                raise RuntimeError(f"csrc/cheb_attn.cu and cheb_attn.py disagree on the "
+                                   f"forward's shared memory for H, B, D = {shape}: {got}")
         _lib = lib
     return _lib
 
 
-def launch_config(heads: int, b: int, d: int) -> Tuple[int, int, int]:
-    """``(node_tile, d_tile, smem_bytes)`` for one launch.
+def _r4(n: int) -> int:
+    return -(-n // 4) * 4
 
-    ``d_tile`` is the next power of two >= D (at most 256) so a warp's
-    loads run along D; ``node_tile`` fills the block to 256 threads, cut so
-    the tile's weights fit the default 48 KB of shared memory. The size
-    formula matches the shared-memory layout in ``csrc/cheb_attn.cu``.
+
+def _fwd_smem(heads: int, b: int, tile: int, d_chunk: int, warps: int) -> int:
+    """fwd_smem_bytes of csrc/cheb_attn.cu: 128 bytes of barriers, the
+    coefficients, each consumer warp's weights (H rows at the odd stride
+    B | 1) and denominators, and ``_FWD_STAGES`` stages of :func:`_fwd_stage`."""
+    return (128 + 4 * MAX_COEFFS + 4 * warps * (_r4(heads * (b | 1)) + _r4(heads))
+            + _FWD_STAGES * _fwd_stage(heads, b, tile, d_chunk))
+
+
+def _fwd_stage(heads: int, b: int, tile: int, d_chunk: int) -> int:
+    """Bytes of one forward stage: H score segments of ``tile * b`` floats at
+    a stride of ``tile + 1`` node rows (rounded to 16 bytes), the mask span
+    and ``tile * b`` neighbour rows of ``d_chunk`` floats."""
+    return 4 * (heads * _r4((tile + 1) * b) + _r4(tile * b) + _r4(tile * b * d_chunk))
+
+
+def launch_plan(heads: int, b: int, d: int, aligned: bool) -> dict:
+    """How the forward kernel runs H = ``heads``, B = ``b``, D = ``d``:
+
+    - ``tile``: nodes per stage, the largest power of two up to 32 whose
+      stage fits ``_FWD_STAGE_BUDGET`` (so that three blocks share an SM), at
+      least 1; ``warps``: consumer warps, ``min(8, tile)``, plus one
+      producer warp (``threads``);
+    - ``d_chunk``: D, unless one node's stage is too large for the 227 KB a
+      block can have; then the widest chunk of columns that fits (a
+      multiple of 4 when at least 4). A row too large even for one column
+      raises ``ValueError``;
+    - ``stages`` and ``smem_bytes``, the size formula of ``fwd_smem_bytes``
+      in ``csrc/cheb_attn.cu``;
+    - ``load``: ``"tma"`` (1-D bulk copies, ``cp.async.bulk``) when
+      ``aligned`` (the base pointers of x, h_nb and mask are 16-byte
+      multiples), B is a multiple of 4 and D is one chunk, else
+      ``"cp.async"``.
     """
-    d_tile = min(_THREADS, 1 << max(d - 1, 0).bit_length())
-    per_node = 4 * heads * ((b | 1) + 1)          # weights (odd stride) + den
-    fixed = 4 * MAX_COEFFS
-    node_tile = max(1, min(_THREADS // d_tile, (_SMEM_DEFAULT - fixed) // per_node))
-    smem = fixed + node_tile * per_node
-    if smem > _SMEM_MAX:
-        raise ValueError(
-            f"cheb_attn: H*B = {heads}*{b} needs {smem} bytes of shared memory "
-            f"for one node, above the {_SMEM_MAX} a block can have"
-        )
-    return node_tile, d_tile, smem
+    return dict(_plan(heads, b, d, bool(aligned)))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(heads: int, b: int, d: int, aligned: bool) -> dict:
+    tile = 32
+    while tile > 1 and _fwd_stage(heads, b, tile, d) > _FWD_STAGE_BUDGET:
+        tile //= 2
+    warps = min(_FWD_MAX_WARPS, tile)
+    d_chunk = d
+    if _fwd_smem(heads, b, tile, d, warps) > _SMEM_MAX:
+        # A column adds 8 B bytes over the two stages, and rounding at most 16.
+        d_chunk = (_SMEM_MAX - _fwd_smem(heads, b, 1, 0, 1)) // (8 * b)
+        while d_chunk > 0 and _fwd_smem(heads, b, 1, d_chunk, 1) > _SMEM_MAX:
+            d_chunk -= 1
+        if d_chunk < 1:
+            raise ValueError(
+                f"cheb_attn: H*B = {heads}*{b} needs {_fwd_smem(heads, b, 1, 1, 1)} bytes of "
+                f"shared memory for one node, above the {_SMEM_MAX} a block can have"
+            )
+        d_chunk -= d_chunk % 4 if d_chunk >= 4 else 0
+    smem = _fwd_smem(heads, b, tile, d_chunk, warps)
+    tma = aligned and b % 4 == 0 and d_chunk == d
+    return {"tile": tile, "d_chunk": d_chunk, "warps": warps, "threads": 32 * (warps + 1),
+            "stages": _FWD_STAGES, "smem_bytes": smem, "load": "tma" if tma else "cp.async"}
 
 
 def _bwd_ld(dc: int) -> int:
@@ -133,12 +201,9 @@ def backward_launch_config(heads: int, b: int, d: int) -> Tuple[int, int, int]:
     """
     fixed = 4 * MAX_COEFFS
 
-    def r4(n):
-        return -(-n // 4) * 4
-
     def per_warp(dc):
         ld = _bwd_ld(dc)
-        floats = 5 * r4(heads * b) + r4(b) + r4(b * ld) + r4(heads * ld) + 2 * r4(heads)
+        floats = 5 * _r4(heads * b) + _r4(b) + _r4(b * ld) + _r4(heads * ld) + 2 * _r4(heads)
         return 4 * (floats + MAX_COEFFS)
 
     budget = _SMEM_DEFAULT if fixed + per_warp(1) <= _SMEM_DEFAULT else _SMEM_MAX
@@ -156,13 +221,14 @@ def backward_launch_config(heads: int, b: int, d: int) -> Tuple[int, int, int]:
     return warps, d_chunk, fixed + warps * per_warp(d_chunk)
 
 
-def backward_grid(nodes: int, warps: int, blocks_per_sm: int, sm_count: int) -> int:
-    """Blocks of the backward's grid-stride loop over ``nodes``: one wave of
-    the blocks that fit on the card at once (``blocks_per_sm``, from the
-    CUDA occupancy query of the kernel instance), fewer when there are
-    fewer nodes. More blocks than fit would run in a second, partial wave
-    after the first."""
-    return max(1, min(-(-nodes // warps), sm_count * max(1, blocks_per_sm)))
+def wave_grid(items: int, per_block: int, blocks_per_sm: int, sm_count: int) -> int:
+    """Blocks of a grid-stride loop over ``items`` that takes ``per_block``
+    of them per block at a time (the backward's nodes, a warp each; the
+    forward's node tiles, one at a time): one wave of the blocks that fit
+    on the card at once (``blocks_per_sm``, from the CUDA occupancy query
+    of the kernel instance), fewer when there are fewer items. More blocks
+    than fit would run in a second, partial wave after the first."""
+    return max(1, min(-(-items // per_block), sm_count * max(1, blocks_per_sm)))
 
 
 def _batched(x, h_nb, mask):
@@ -201,14 +267,20 @@ def _launch(x, h_nb, mask, coeffs):
     g, heads, n, b = x4.shape
     d = h4.shape[-1]
     out = torch.empty((g, heads, n, d), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
-        return out.reshape(out_shape)
-    node_tile, d_tile, smem = launch_config(heads, b, d)
+    if out.numel() == 0 or b == 0:              # no neighbours: every denominator is 0
+        return out.zero_().reshape(out_shape)
+    aligned = _aligned(x4, h4, m4)
+    plan = launch_plan(heads, b, d, aligned)
+    tile, d_chunk, warps, smem = plan["tile"], plan["d_chunk"], plan["warps"], plan["smem_bytes"]
+    sm_count, per_sm = _occupancy(x.device.index, "cheb_attn_fwd_blocks_per_sm", b, warps, smem)
+    grid = wave_grid(g * -(-n // tile) * -(-d // d_chunk), 1, per_sm, sm_count)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.cheb_attn_forward(
             x4.data_ptr(), h4.data_ptr(), m4.data_ptr(), coeffs.data_ptr(),
-            out.data_ptr(), g, heads, n, b, d, p, node_tile, d_tile, smem, stream,
+            out.data_ptr(), g, heads, n, b, d, p, tile, d_chunk, warps, grid,
+            int(plan["load"] == "tma"), int(aligned and d % 4 == 0 and d_chunk % 4 == 0),
+            smem, stream,
         )
     raise_on(rc, lib.cheb_attn_error_string, "cheb_attn")
     cheb_attn.launches += 1
@@ -216,15 +288,16 @@ def _launch(x, h_nb, mask, coeffs):
 
 
 @functools.lru_cache(maxsize=None)
-def _occupancy(device: int, p: int, want_dq: bool, warps: int, smem: int) -> Tuple[int, int]:
-    """(SMs of the card, backward blocks that fit on one SM), asked once per
-    launch shape: the query costs more host time than a launch."""
+def _occupancy(device: int, query: str, *args: int) -> Tuple[int, int]:
+    """(SMs of the card, blocks that fit on one SM) from the library's
+    occupancy ``query`` (``cheb_attn_fwd_blocks_per_sm`` or
+    ``cheb_attn_bwd_blocks_per_sm``) with ``args``, asked once per launch
+    shape: the query costs more host time than a launch."""
     lib = _library()
     per_sm = ctypes.c_int(0)
     with torch.cuda.device(device):
-        raise_on(lib.cheb_attn_bwd_blocks_per_sm(p, int(want_dq), warps, smem,
-                                                 ctypes.byref(per_sm)),
-                 lib.cheb_attn_error_string, "cheb_attn backward occupancy")
+        raise_on(getattr(lib, query)(*args, ctypes.byref(per_sm)),
+                 lib.cheb_attn_error_string, f"cheb_attn occupancy ({query})")
     return torch.cuda.get_device_properties(device).multi_processor_count, per_sm.value
 
 
@@ -246,8 +319,9 @@ def _launch_backward(x, h_nb, mask, coeffs, dout, needs):
                       (torch.float32,))
     p = _check_coeffs(coeffs)
     warps, d_chunk, smem = backward_launch_config(heads, b, d)
-    sm_count, per_sm = _occupancy(x.device.index, p, bool(needs[3]), warps, smem)
-    grid = backward_grid(g * n, warps, per_sm, sm_count)
+    sm_count, per_sm = _occupancy(x.device.index, "cheb_attn_bwd_blocks_per_sm", p,
+                                  int(bool(needs[3])), warps, smem)
+    grid = wave_grid(g * n, warps, per_sm, sm_count)
 
     def empty(shape, want):              # the kernel writes every entry
         return torch.empty(shape, dtype=torch.float32, device=x.device) if want else None

@@ -13,29 +13,44 @@
 // O(H*B*(p + D)) flops, far below the card's rate for those bytes (at the
 // serving shape H8 N1e6 B16 D16, ~2.1 GB moved against ~8 GFLOP).
 //
-// Design: one block per (tile of nodes) x (tile of feature columns), with
-// every head handled inside the block, as the TPU kernel's heads-innermost
-// grid does: the h_nb tile is read from device memory once for all heads,
-// not once per head. The block first evaluates the H x tile x B polynomial
-// weights and the H x tile denominators into shared memory; then each
-// thread owns one (node, column) pair, streams the node's B neighbour
-// values of its column once (loads coalesced along D) and accumulates up to
-// HEAD_CHUNK heads in registers. Ragged edges of N and D are masked here,
-// so the caller pads nothing. No wgmma/TMA: this is a batched GEMV bound by
-// memory, and the tile is far below the tensor cores' shapes.
+// Design (cheb_attn_fwd_kernel below): a persistent grid of one wave (as
+// many blocks as fit on the card, from the occupancy query) walks tiles of
+// T consecutive nodes in a fixed stride. Each block keeps a ring of
+// FWD_STAGES stages in shared memory, filled by one producer warp: a node
+// tile's H score segments (each T*B floats, contiguous in (G,H,N,B)), its
+// T*B*D neighbour span and its T*B mask span arrive as 1-D bulk copies
+// (cp.async.bulk, completing on the stage's mbarrier), so the loads of the
+// next tiles are in flight while the consumer warps work on this one. Where
+// a bulk copy cannot take them (B not a multiple of 4, a base not 16-byte
+// aligned, or a D cut into chunks) the same warp fills the same stage
+// layout with cp.async copies. Consumer warps take one node at a time:
+// Horner on the staged scores (lanes walk the (h, b) items without integer
+// division), den by xor shuffles over the B lanes of a head where B is a
+// power of two up to 32 (else a sum over the warp's staged weights), then
+// each lane accumulates a head's run of 4 columns (float4 reads of the
+// staged neighbour tile, one weight read per neighbour) and stores its 16
+// bytes of the output row; a warp's stores fill whole 32-byte sectors, so
+// the output is not staged. Tiles too large for shared memory cut D into
+// chunks of d_chunk columns, one node at a time. The heads stay inside the
+// block, as the TPU kernel's heads-innermost grid does: the neighbour tile
+// is read from device memory once for all heads. With the loads in flight
+// the consumers' arithmetic sets the time on an H100 (the loads alone run
+// near the bound; PERF.md): Horner keeps the reference's separate
+// roundings, so each coefficient load serves four chains, and B is a
+// template constant where it is a power of two up to 32.
 //
-// The launch configuration (node_tile x d_tile threads, dynamic shared
-// memory) is chosen by repro_torch/kernels/cheb_attn.py::launch_config; the
-// shared-memory layout below must match its size formula.
+// The plan (tile, d_chunk, warps, shared memory, load path) is chosen by
+// repro_torch/kernels/cheb_attn.py::launch_plan; its size formula is
+// fwd_smem_bytes below.
 //
 // Backward (cheb_attn_bwd_kernel below). Replaces the backward of
 // repro/kernels/cheb_attn.py::cheb_attn_diff (_cheb_attn_diff_bwd at :189,
 // jax.vjp of the oracle). See that kernel's comment.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attn_common.cuh"
 
 #define CHEB_MAX_COEFFS 64
-#define HEAD_CHUNK 8
+#define FWD_MAX_WARPS 8
+#define FWD_STAGES 2
 #define BWD_MAX_WARPS 8
 
 // Horner from the highest coefficient with separate roundings, as the
@@ -44,81 +59,6 @@ __device__ __forceinline__ float horner(const float* q, int P, float x) {
     float acc = 0.f;
     for (int k = P - 1; k >= 0; --k) acc = __fadd_rn(__fmul_rn(acc, x), q[k]);
     return acc;
-}
-
-__global__ void cheb_attn_kernel(
-    const float* __restrict__ x,       // (G, H, N, B)
-    const float* __restrict__ h_nb,    // (G, N, B, D)
-    const float* __restrict__ mask,    // (G, N, B)
-    const float* __restrict__ coeffs,  // (P,)
-    float* __restrict__ out,           // (G, H, N, D)
-    int H, int64_t N, int B, int D, int P, int node_tile)
-{
-    extern __shared__ float smem[];
-    const int BP = B | 1;  // odd row stride: the denominator loop is conflict-free
-    float* q_s = smem;                                   // CHEB_MAX_COEFFS
-    float* e_s = q_s + CHEB_MAX_COEFFS;                  // H * node_tile * BP
-    float* den_s = e_s + (size_t)H * node_tile * BP;     // H * node_tile
-
-    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-    const int nthreads = blockDim.x * blockDim.y;
-    const int64_t g = blockIdx.z;
-    const int64_t n0 = (int64_t)blockIdx.x * node_tile;
-
-    for (int i = tid; i < P; i += nthreads) q_s[i] = coeffs[i];
-    __syncthreads();
-
-    // Phase 1: polynomial weights for every head of the node tile.
-    const int per_head = node_tile * B;
-    for (int i = tid; i < H * per_head; i += nthreads) {
-        const int h = i / per_head;
-        const int r = i - h * per_head;
-        const int nl = r / B;
-        const int b = r - nl * B;
-        const int64_t n = n0 + nl;
-        float e = 0.f;
-        if (n < N) {
-            const float xv = x[((g * H + h) * N + n) * B + b];
-            // The mask multiplies after Horner, so inf * 0 is NaN as in the reference.
-            e = horner(q_s, P, xv) * mask[(g * N + n) * B + b];
-        }
-        e_s[(h * node_tile + nl) * BP + b] = e;
-    }
-    __syncthreads();
-    for (int i = tid; i < H * node_tile; i += nthreads) {
-        const float* row = e_s + (size_t)i * BP;
-        float s = 0.f;
-        for (int b = 0; b < B; ++b) s += row[b];
-        den_s[i] = s;
-    }
-    __syncthreads();
-
-    // Phase 2: one thread per (node, feature column), all heads.
-    const int nl = threadIdx.y;
-    const int64_t n = n0 + nl;
-    const int d = blockIdx.y * blockDim.x + threadIdx.x;
-    if (n >= N || d >= D) return;
-    const float* col = h_nb + (g * N + n) * B * (int64_t)D + d;
-    for (int h0 = 0; h0 < H; h0 += HEAD_CHUNK) {
-        float acc[HEAD_CHUNK];
-#pragma unroll
-        for (int k = 0; k < HEAD_CHUNK; ++k) acc[k] = 0.f;
-        for (int b = 0; b < B; ++b) {
-            const float v = col[(int64_t)b * D];
-#pragma unroll
-            for (int k = 0; k < HEAD_CHUNK; ++k)
-                if (h0 + k < H) acc[k] = fmaf(e_s[((h0 + k) * node_tile + nl) * BP + b], v, acc[k]);
-        }
-#pragma unroll
-        for (int k = 0; k < HEAD_CHUNK; ++k) {
-            const int h = h0 + k;
-            if (h < H) {
-                const float den = den_s[h * node_tile + nl];
-                // Exact zero only for an exactly zero denominator; negative ones divide.
-                out[((g * H + h) * N + n) * D + d] = den != 0.f ? acc[k] / den : 0.f;
-            }
-        }
-    }
 }
 
 // Backward of the aggregation. Given dout (G, H, N, D), with e, den and out
@@ -177,10 +117,6 @@ __global__ void cheb_attn_kernel(
 // d_chunk is (16-byte rows, and 8 lanes' rows in distinct banks), else
 // d_chunk | 1 (odd: the lanes' rows in distinct banks).
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __host__ __device__ __forceinline__ int bwd_ld(int dc) {
     if (dc % 4) return dc | 1;
     const int q = dc / 4 + 1;
@@ -236,6 +172,222 @@ __device__ __forceinline__ void stage_wait() {
 }
 
 __host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+__host__ __device__ __forceinline__ long long round4(long long n) { return (n + 3) & ~3LL; }
+
+// Forward stage layout, in floats, each array at a 16-byte multiple: H score
+// segments of T*B at stride fwd_xld (one node row past T*B, so that
+// consecutive heads' segments continue each other's banks), the mask span
+// and the neighbour span (T*B rows of d_chunk).
+__host__ __device__ __forceinline__ int fwd_xld(int T, int B) { return round4((T + 1) * B); }
+
+__host__ __device__ __forceinline__ long long fwd_stage_floats(int H, int B, int T, int DC) {
+    return (long long)H * fwd_xld(T, B) + round4(T * B) + round4((long long)T * B * DC);
+}
+
+// The forward's shared memory: 128 bytes of barriers, the coefficients, each
+// consumer warp's weights (H rows at the odd stride B | 1) and denominators,
+// then FWD_STAGES stages. repro_torch/kernels/cheb_attn.py::launch_plan
+// computes the same.
+__host__ __device__ __forceinline__ long long fwd_smem_bytes(int H, int B, int T, int DC, int W) {
+    return 128 + 4 * CHEB_MAX_COEFFS + 4LL * W * (round4(H * (B | 1)) + round4(H)) +
+           4LL * FWD_STAGES * fwd_stage_floats(H, B, T, DC);
+}
+
+// One node's weights e (into ew, H rows at the odd stride ES) and
+// denominators (into dw), from its staged scores xr (head h at h * xld) and
+// mask row mr. BP > 0: B == BP, a power of two up to 32, so a lane's items
+// share one neighbour b = lane % B and a head's B items lie in B
+// consecutive lanes: den by xor shuffles. Four items of a lane at a time,
+// so that one coefficient load serves four independent Horner chains.
+// BP == 0: any B; lanes walk the (h, b) items, den summed from ew.
+template <int BP>
+__device__ __forceinline__ void node_weights(float* ew, float* dw, const float* xr,
+                                             const float* mr, const float* q_s, int H, int B,
+                                             int ES, int xld, int P, Walk wx, int lane) {
+    if constexpr (BP > 0) {
+        constexpr int HPW = 32 / BP;                        // heads per warp row
+        const int b = lane & (BP - 1), h0 = lane / BP;
+        const float m = mr[b];
+        const int nit = (H + HPW - 1) / HPW;
+        // Horner's first step, 0 * x + q[P-1], is q[P-1] for a finite x; an
+        // infinite x then gives an infinite weight where the reference's is
+        // NaN, and the node's outputs are NaN all the same (inf / inf, inf * 0).
+        const float q_top = q_s[P - 1];
+        for (int j0 = 0; j0 < nit; j0 += 4) {
+            float xv[4], acc[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const int h = h0 + HPW * (j0 + u);
+                xv[u] = (j0 + u < nit && h < H) ? xr[h * xld + b] : 0.f;
+                acc[u] = q_top;
+            }
+#pragma unroll 2
+            for (int kq = P - 2; kq >= 0; --kq) {
+                const float qk = q_s[kq];
+#pragma unroll
+                for (int u = 0; u < 4; ++u) acc[u] = __fadd_rn(__fmul_rn(acc[u], xv[u]), qk);
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                if (j0 + u >= nit) break;                   // the same for every lane
+                const int h = h0 + HPW * (j0 + u);
+                // The mask multiplies after Horner, so inf * 0 is NaN as in the reference.
+                float e = h < H ? acc[u] * m : 0.f;
+                if (h < H) ew[h * ES + b] = e;
+#pragma unroll
+                for (int off = BP / 2; off > 0; off >>= 1)
+                    e += __shfl_xor_sync(0xffffffffu, e, off);
+                if (b == 0 && h < H) dw[h] = e;
+            }
+        }
+    } else {
+        for (Walk w = wx; w.r < H; w.next())
+            ew[w.r * ES + w.c] = horner(q_s, P, xr[w.r * xld + w.c]) * mr[w.c];
+        __syncwarp();
+        for (int h = lane; h < H; h += 32) {
+            float sum = 0.f;
+            for (int b = 0; b < B; ++b) sum += ew[h * ES + b];
+            dw[h] = sum;
+        }
+    }
+}
+
+// blockDim.x = 32 (W + 1): W consumer warps and the producer warp. Items are
+// (graph, node tile, D chunk), walked from blockIdx.x in steps of gridDim.x;
+// the k-th item of a block uses stage k % FWD_STAGES. bulk: the stage is
+// filled by 1-D bulk copies (B % 4 == 0, one D chunk, 16-byte-aligned bases);
+// else by cp.async, 16 bytes at a time for the neighbour rows when vec_h.
+// BP: B when it is a power of two up to 32 (node_weights), else 0.
+template <int BP>
+__global__ void __launch_bounds__((FWD_MAX_WARPS + 1) * 32, 3) cheb_attn_fwd_kernel(
+    const float* __restrict__ x,       // (G, H, N, B)
+    const float* __restrict__ h_nb,    // (G, N, B, D)
+    const float* __restrict__ mask,    // (G, N, B)
+    const float* __restrict__ coeffs,  // (P,)
+    float* __restrict__ out,           // (G, H, N, D)
+    int G, int H, int64_t N, int B_, int D, int P, int T, int DC, int bulk, int vec_h)
+{
+    extern __shared__ float smem[];
+    const int B = BP > 0 ? BP : B_;
+    const int W = (int)(blockDim.x >> 5) - 1;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const uint32_t bar_full = smem_u32(smem), bar_empty = bar_full + 8 * FWD_STAGES;
+    float* q_s = smem + 32;
+    const int ES = B | 1, e_floats = round4(H * ES), per_warp = e_floats + round4(H);
+    float* stages = q_s + CHEB_MAX_COEFFS + W * per_warp;
+    const int xld = fwd_xld(T, B);
+    const long long stage_floats = fwd_stage_floats(H, B, T, DC);
+    const int n_dc = (D + DC - 1) / DC;
+    const int64_t tiles = (N + T - 1) / T;
+
+    for (int i = threadIdx.x; i < P; i += blockDim.x) q_s[i] = coeffs[i];
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < FWD_STAGES; ++s) {
+            mbar_init(bar_full + 8 * s, 1);
+            mbar_init(bar_empty + 8 * s, W);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    // The item (g, node tile t, chunk c), advanced by gridDim.x items at a
+    // time with carries, so that no loop divides.
+    int c = (int)(blockIdx.x % n_dc);
+    int64_t t = blockIdx.x / n_dc, g = t / tiles;
+    t -= g * tiles;
+    const int c_step = (int)(gridDim.x % n_dc);
+    const int64_t t_step = gridDim.x / n_dc;
+    const Walk wx(B, lane);
+    float* ew = q_s + CHEB_MAX_COEFFS + warp * per_warp;     // H x ES weights
+    float* dw = ew + e_floats;                              // H denominators
+    for (int k = 0; g < G; ++k) {
+        const int s = k % FWD_STAGES;
+        const uint32_t ph = (uint32_t)(k / FWD_STAGES) & 1u;
+        const int64_t n0 = t * T;
+        const int tv = (int)min((int64_t)T, N - n0);
+        const int dcv = min(DC, D - c * DC);
+        float* xs = stages + s * stage_floats;
+        float* ms = xs + (int64_t)H * xld;
+        float* hs = ms + round4(T * B);
+
+        if (warp == W) {
+            // Producer: fill stage s once every consumer warp is done with it.
+            const float* hsrc = h_nb + (g * N + n0) * B * (int64_t)D + (int64_t)c * DC;
+            mbar_wait(bar_empty + 8 * s, ph ^ 1u);
+            if (bulk) {
+                if (lane == 0) {
+                    const uint32_t xb = 4u * tv * B, full = bar_full + 8 * s;
+                    mbar_expect_tx(full, (uint32_t)H * xb + xb + xb * (uint32_t)D);
+                    for (int h = 0; h < H; ++h)
+                        bulk_load(smem_u32(xs + h * xld), x + ((g * H + h) * N + n0) * B, xb, full);
+                    bulk_load(smem_u32(ms), mask + (g * N + n0) * B, xb, full);
+                    bulk_load(smem_u32(hs), hsrc, xb * (uint32_t)D, full);
+                }
+            } else {
+                for (int h = 0; h < H; ++h)
+                    stage_rows(xs + h * xld, 0, x + ((g * H + h) * N + n0) * B, 0, 1,
+                               Walk(tv * B, lane), false);
+                stage_rows(ms, 0, mask + (g * N + n0) * B, 0, 1, Walk(tv * B, lane), false);
+                stage_rows(hs, DC, hsrc, D, tv * B, Walk(vec_h ? dcv / 4 : dcv, lane), vec_h);
+                asm volatile("cp.async.wait_all;\n" ::: "memory");
+                __syncwarp();
+                if (lane == 0) mbar_arrive(bar_full + 8 * s);
+            }
+        } else {
+            // Consumers: one node per warp at a time; each lane accumulates a
+            // head's run of 4 columns (or 1) over the node's neighbours.
+            const bool vec = (D & 3) == 0 && (DC & 3) == 0;
+            const Walk wo(vec ? dcv / 4 : dcv, lane);
+            mbar_wait(bar_full + 8 * s, ph);
+            for (int nl = warp; nl < tv; nl += W) {
+                const int64_t n = n0 + nl;
+                node_weights<BP>(ew, dw, xs + nl * B, ms + nl * B, q_s, H, B, ES, xld, P, wx,
+                                 lane);
+                __syncwarp();
+                const float* hr = hs + (int64_t)nl * B * DC;
+                float* orow = out + ((g * H) * N + n) * D + (int64_t)c * DC;
+                for (Walk w = wo; w.r < H; w.next()) {
+                    const float* er = ew + w.r * ES;
+                    // Exact zero only for an exactly zero denominator; negative ones divide.
+                    const float den = dw[w.r], inv = __frcp_rn(den);
+                    float* o = orow + w.r * N * D;
+                    if (vec) {
+                        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+                        for (int b = 0; b < B; ++b) {
+                            const float e = er[b];
+                            const float4 hv =
+                                *reinterpret_cast<const float4*>(hr + b * DC + 4 * w.c);
+                            acc.x = fmaf(e, hv.x, acc.x);
+                            acc.y = fmaf(e, hv.y, acc.y);
+                            acc.z = fmaf(e, hv.z, acc.z);
+                            acc.w = fmaf(e, hv.w, acc.w);
+                        }
+                        *reinterpret_cast<float4*>(o + 4 * w.c) = den != 0.f
+                            ? make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+                    } else {
+                        float acc = 0.f;
+                        for (int b = 0; b < B; ++b) acc = fmaf(er[b], hr[b * DC + w.c], acc);
+                        o[w.c] = den != 0.f ? acc * inv : 0.f;
+                    }
+                }
+                __syncwarp();                  // the next node rewrites the weights
+            }
+            if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+        }
+        c += c_step;
+        t += t_step;
+        if (c >= n_dc) {
+            c -= n_dc;
+            ++t;
+        }
+        while (t >= tiles) {
+            t -= tiles;
+            ++g;
+        }
+    }
+}
 
 // Register caps: 64 without dcoeffs (4 blocks of 8 warps per SM, so that
 // shared memory, not registers, bounds the warps in flight), 128 with its
@@ -532,6 +684,22 @@ __global__ void __launch_bounds__(BWD_MAX_WARPS * 32, PQ > 0 ? 2 : 4) cheb_attn_
     }
 }
 
+typedef void (*FwdKernel)(const float*, const float*, const float*, const float*, float*, int,
+                          int, int64_t, int, int, int, int, int, int, int);
+
+// The forward's instance for B: the shuffle path for a power of two up to 32.
+static FwdKernel fwd_kernel(int B) {
+    switch (B) {
+        case 1: return &cheb_attn_fwd_kernel<1>;
+        case 2: return &cheb_attn_fwd_kernel<2>;
+        case 4: return &cheb_attn_fwd_kernel<4>;
+        case 8: return &cheb_attn_fwd_kernel<8>;
+        case 16: return &cheb_attn_fwd_kernel<16>;
+        case 32: return &cheb_attn_fwd_kernel<32>;
+        default: return &cheb_attn_fwd_kernel<0>;
+    }
+}
+
 extern "C" {
 
 int cheb_attn_max_coeffs(void) { return CHEB_MAX_COEFFS; }
@@ -540,23 +708,46 @@ const char* cheb_attn_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// The forward's shared-memory bytes for a plan (fwd_smem_bytes), so that the
+// wrapper can hold its own formula against this one.
+long long cheb_attn_fwd_smem(int H, int B, int tile, int d_chunk, int warps) {
+    return fwd_smem_bytes(H, B, tile, d_chunk, warps);
+}
+
+int cheb_attn_fwd_max_warps(void) { return FWD_MAX_WARPS; }
+
+// Forward blocks (B's instance) of `warps` consumer warps plus the producer
+// with `smem_bytes` of shared memory that fit on one SM at once, written to
+// *out: the persistent grid is one wave of them.
+int cheb_attn_fwd_blocks_per_sm(int B, int warps, long long smem_bytes, int* out) {
+    const FwdKernel kernel = fwd_kernel(B);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, (warps + 1) * 32,
+                                                            (size_t)smem_bytes);
+    return (int)err;
+}
+
+// Launches the forward on `stream`: `grid` blocks of `warps` consumer warps
+// and one producer warp, tiles of `tile` nodes and `d_chunk` columns; bulk:
+// 1-D bulk copies fill the stages, else cp.async (16 bytes for the
+// neighbour rows when vec_h). Returns cudaGetLastError() (0 on success).
 int cheb_attn_forward(
     const void* x, const void* h_nb, const void* mask, const void* coeffs, void* out,
-    int G, int H, long long N, int B, int D, int P,
-    int node_tile, int d_tile, long long smem_bytes, void* stream)
+    int G, int H, long long N, int B, int D, int P, int tile, int d_chunk, int warps, int grid,
+    int bulk, int vec_h, long long smem_bytes, void* stream)
 {
-    if (smem_bytes > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            cheb_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
-        if (err != cudaSuccess) return (int)err;
-    }
-    const dim3 block(d_tile, node_tile);
-    const dim3 grid((unsigned)((N + node_tile - 1) / node_tile),
-                    (unsigned)((D + d_tile - 1) / d_tile), (unsigned)G);
-    cheb_attn_kernel<<<grid, block, (size_t)smem_bytes, (cudaStream_t)stream>>>(
+    if (warps < 1 || warps > FWD_MAX_WARPS || tile < 1 || d_chunk < 1 || d_chunk > D || grid < 1 ||
+        smem_bytes != fwd_smem_bytes(H, B, tile, d_chunk, warps))
+        return (int)cudaErrorInvalidValue;
+    const FwdKernel kernel = fwd_kernel(B);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)grid, (warps + 1) * 32, (size_t)smem_bytes, (cudaStream_t)stream>>>(
         (const float*)x, (const float*)h_nb, (const float*)mask, (const float*)coeffs,
-        (float*)out, H, (int64_t)N, B, D, P, node_tile);
+        (float*)out, G, H, (int64_t)N, B, D, P, tile, d_chunk, bulk, vec_h);
     return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,12 @@ port follows the kernel (``ref.poly_attn_ref`` keeps the oracle's guard).
 
 Bound on the card: float32 operations (Horner per score and the ``e . v``
 sums). The scores are rank one, so there is no ``q k^T`` product, and the
-sums are plain: no running max and no rescaling (design in the source).
+sums are plain: no running max and no rescaling. The kernel runs ``e . v``
+on the tensor cores (wgmma with ``e`` as a bf16 pair for bf16 inputs,
+mma.sync in error-compensated TF32 for float32), fed by a producer warp
+that keeps a ring of key and value tiles through TMA, or through cp.async
+where a TMA descriptor cannot describe the tensor; :func:`launch_plan`
+reports the tiles and the load path of a call (design in the source).
 
 ``poly_attn`` takes :func:`poly_attn_plain` for CPU tensors and launches the
 kernel for CUDA tensors, or raises. ``poly_attn.launches`` counts launches.
@@ -22,15 +27,19 @@ kernel for CUDA tensors, or raises. ``poly_attn.launches`` counts launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import check_cuda_inputs, raise_on
+from repro_torch.kernels.flash_attn import _alignment
 
 MAX_HEAD_DIM = 256                  # POLY_MAX_HD in csrc/poly_attn.cu
 MAX_COEFFS = 64                     # POLY_MAX_COEFFS in csrc/poly_attn.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_MAX = 227 * 1024              # POLY_SMEM_MAX in csrc/poly_attn.cu
+_FIXED = 4096                       # PolyCfg::FIXED: alignment, barriers, coeffs, sk, a2
 
 _lib = None
 
@@ -43,9 +52,12 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         lib.poly_attn_forward.restype = ctypes.c_int
+        lib.poly_attn_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.poly_attn_plan.restype = ctypes.c_int
         lib.poly_attn_error_string.argtypes = [ctypes.c_int]
         lib.poly_attn_error_string.restype = ctypes.c_char_p
         lib.poly_attn_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
@@ -54,8 +66,66 @@ def _library() -> ctypes.CDLL:
         lib.poly_attn_limits(ctypes.byref(hd), ctypes.byref(p))
         if (hd.value, p.value) != (MAX_HEAD_DIM, MAX_COEFFS):
             raise RuntimeError("csrc/poly_attn.cu and poly_attn.py disagree on their limits")
+        for dtype, code in _DTYPE_CODE.items():
+            for hd in (1, 64, 65, 128, 129, MAX_HEAD_DIM):
+                got = (ctypes.c_int * 6)()
+                lib.poly_attn_plan(hd, code, got)
+                want = _tiles(hd, dtype)
+                if tuple(got) != tuple(want[k] for k in ("hd_pad", "block_m", "block_n",
+                                                         "threads", "smem_bytes", "stages")):
+                    raise RuntimeError("csrc/poly_attn.cu and poly_attn.py disagree on "
+                                       f"the tiles of hd={hd} {dtype}: {tuple(got)}")
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def _tiles(hd: int, dtype: torch.dtype) -> dict:
+    """PolyCfg of csrc/poly_attn.cu: hd padded to a multiple of the 64-column
+    wgmma panel; 8 consumer warps of 16 query rows per m-tile, one m-tile
+    for bf16 (two warpgroups, 128 rows) and two for float32 up to hd 128
+    (each split value fragment feeds both: 256 rows), plus a producer
+    warpgroup (a loading warp and the warp that computes sk); keys per
+    tile; and as many stages of a key and a value tile as fit the 227 KB a
+    block can have, at most 4, beside 4 KB for the alignment, the
+    barriers, the coefficients, sk and a2."""
+    hd_pad = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    bf16 = dtype == torch.bfloat16
+    rows_per_warp = 32 if (not bf16 and hd_pad <= 128) else 16
+    block_n = 64 if (bf16 and hd_pad <= 128) else 32
+    stage = 2 * block_n * hd_pad * (2 if bf16 else 4)
+    stages = min(4, (_SMEM_MAX - _FIXED) // stage)
+    return {
+        "hd_pad": hd_pad, "block_m": 8 * rows_per_warp, "block_n": block_n,
+        "rows_per_warp": rows_per_warp, "threads": 8 * 32 + 128,
+        "smem_bytes": _FIXED + stages * stage, "stages": stages,
+    }
+
+
+def launch_plan(s: int, hd: int, dtype: torch.dtype, align: int = 16) -> dict:
+    """How the kernel runs a call with sequence length ``s``, head dim ``hd``
+    and ``dtype``, when the base pointers of k and v are multiples of
+    ``align`` bytes: the tiles (:func:`_tiles`), the blocks per head, the
+    product (``wgmma`` with ``e`` as a bf16 pair for bf16, ``mma.sync
+    3xTF32`` for float32) and the load path of the key and value tiles:
+    ``"tma"`` exactly when a TMA descriptor can describe them (``hd *
+    itemsize`` a multiple of 16 bytes and 16-byte-aligned bases), else
+    ``"cp.async"``, whose copies are 4 bytes (``copy_bytes``) unless bf16
+    rows are not 4-byte granular (odd hd or 2-byte-aligned bases)."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"poly_attn: dtype must be float32 or bfloat16, got {dtype}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"poly_attn: head dim {hd} is outside 1..{MAX_HEAD_DIM}")
+    size = 2 if dtype == torch.bfloat16 else 4
+    plan = dict(_tiles(hd, dtype))
+    tma = (hd * size) % 16 == 0 and align % 16 == 0
+    word = size == 4 or (hd % 2 == 0 and align % 4 == 0)
+    plan.update(
+        blocks_per_head=-(-s // plan["block_m"]),
+        mma="wgmma bf16 pair" if dtype == torch.bfloat16 else "mma.sync 3xTF32",
+        load="tma" if tma else "cp.async", copy_bytes=None if tma else (4 if word else 2),
+    )
+    return plan
 
 
 def _check_shapes(q, k, v, a1, a2, coeffs):
@@ -115,12 +185,14 @@ def _launch(q, k, v, a1, a2, coeffs, causal, domain):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    plan = launch_plan(s, hd, q.dtype, _alignment(k, v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.poly_attn_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), a1.data_ptr(), a2.data_ptr(),
             coeffs.data_ptr(), out.data_ptr(), bt * heads, heads, s, hd, coeffs.numel(),
-            int(causal), float(domain), _DTYPE_CODE[q.dtype], stream,
+            int(causal), float(domain), _DTYPE_CODE[q.dtype], int(plan["load"] == "tma"),
+            int(plan["copy_bytes"] == 4), stream,
         )
     raise_on(rc, lib.poly_attn_error_string, "poly_attn")
     poly_attn.launches += 1

@@ -3,10 +3,13 @@ training run on the card against the same run on the CPU.
 
 Tolerances: cheb_attn as ``chip_smoke.py``; the sequence kernels at the
 reference tests' own (``tests/test_kernels.py``: flash f32 2e-4/2e-5, bf16
-2e-2; poly 5e-4; wkv 1e-4). flash is also held at its tile edges (S around
-64 and 128, hd around the 64-column panels) and on both load paths (TMA,
-cp.async); the backward at the training shape, at B 1 and D 1, with D cut
-into chunks, and for every subset of the cotangents.
+2e-2; poly 5e-4; wkv 1e-4). flash and poly are also held at their tile
+edges (S around the key tiles and the query blocks, hd around the 64-column
+panels) and on both load paths (TMA, cp.async); the cheb_attn forward on
+both of its load paths (bulk copies, cp.async), at N around its node tile,
+in every layout and with D cut into chunks; the backward at the training
+shape, at B 1 and D 1, with D cut into chunks, and for every subset of the
+cotangents.
 
 Imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -402,3 +405,169 @@ def test_cuda_backward_dcoeffs_does_not_depend_on_block_order():
     assert torch.isfinite(first).all() and torch.equal(first, second)
     torch.testing.assert_close(first, cheb_attn_bwd_ref(x, h, m, coeffs, dout, needs)[3],
                                rtol=1e-3, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The cheb_attn forward: load paths, tile edges, layouts
+# ---------------------------------------------------------------------------
+
+def _offset_tensor(a, offset):
+    """``a`` on the card, starting ``offset`` floats into its storage (a
+    contiguous view whose base is 4-byte aligned only, for offset 1-3)."""
+    flat = torch.empty(a.size + offset, dtype=torch.float32, device="cuda")
+    view = flat[offset:].view(a.shape)
+    view.copy_(torch.from_numpy(a))
+    return view
+
+
+def _fwd_check(lead, glead, n, b, d, want_load, offset=0, seed=0):
+    """The forward on the card against its plain version: an isolated row
+    (exact zeros), a row whose denominator is negative, and a masked
+    infinite score (a NaN row), at every layout and load path."""
+    rng = np.random.default_rng(seed)
+    x = np.clip(rng.standard_normal(lead + (n, b)), -3.5, 3.5).astype(np.float32)
+    m = (rng.random(glead + (n, b)) < 0.7).astype(np.float32)
+    m[..., 0] = 1.0
+    iso, neg, nan = 5 % n, 9 % n, 11 % n
+    x[..., neg, :], m[..., neg, :] = -6.0, 1.0
+    m[..., iso, :] = 0.0
+    if n > 11:
+        x[..., nan, b - 1], m[..., nan, b - 1] = np.inf, 0.0
+    h = rng.standard_normal(glead + (n, b, d)).astype(np.float32) * m[..., None]
+    args = [_offset_tensor(a, offset) for a in (x, h, m)] + [torch.from_numpy(ATT16).cuda()]
+    mod = importlib.import_module("repro_torch.kernels.cheb_attn")
+    heads = x.shape[-3] if x.ndim >= 3 else 1
+    plan = mod.launch_plan(heads, b, d, mod._aligned(*args[:3]))
+    assert plan["load"] == want_load
+    before = cheb_attn.launches
+    got = cheb_attn(*args)
+    torch.cuda.synchronize()
+    assert cheb_attn.launches == before + 1
+    want = cheb_attn_ref(*args)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5, equal_nan=True)
+    assert (got[..., iso, :] == 0).all()
+    assert (want[..., neg, :].abs().sum(-1) > 0).all()
+    if n > 11:
+        assert torch.isnan(got[..., nan, :]).all()
+    return plan
+
+
+FWD_CASES = {
+    # name: (lead, glead, n, b, d, offset, load)
+    "serve-tma": ((8,), (), 4099, 16, 16, 0, "tma"),             # N not a multiple of the tile
+    "n-below-tile": ((8,), (), 5, 16, 16, 0, "tma"),
+    "bucket-b8": ((8,), (), 1001, 8, 16, 0, "tma"),
+    "misaligned-base": ((8,), (), 1001, 16, 16, 1, "cp.async"),
+    "b-not-4": ((3,), (), 777, 5, 300, 0, "cp.async"),
+    "b24-d48": ((8,), (), 1001, 24, 48, 0, "tma"),
+    "2d": ((), (), 1001, 16, 16, 0, "tma"),
+    "2d-misaligned": ((), (), 1001, 12, 20, 2, "cp.async"),
+    "4d": ((3, 4), (3,), 517, 8, 40, 0, "tma"),
+    "4d-b-not-4": ((2, 3), (2,), 300, 7, 9, 0, "cp.async"),
+    "hb-16x64": ((16,), (), 300, 64, 128, 0, "tma"),
+    "d1": ((8,), (), 777, 8, 1, 0, "tma"),
+    "b1": ((8,), (), 777, 1, 16, 0, "cp.async"),
+    "b32": ((4,), (), 500, 32, 8, 0, "tma"),
+    "d-chunks": ((8,), (), 40, 16, 4096, 0, "cp.async"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FWD_CASES), ids=list(FWD_CASES))
+def test_cuda_forward_load_paths_layouts_and_tile_edges(case):
+    """Both load paths (TMA bulk copies; cp.async for B not a multiple of 4,
+    a base that is not 16-byte aligned, or D cut into chunks), N around and
+    below the node tile, the 2-d, 3-d and 4-d layouts with G > 1, B a power
+    of two (the shuffle path) or not, and H*B up to 16*64."""
+    _need_card()
+    lead, glead, n, b, d, offset, load = FWD_CASES[case]
+    plan = _fwd_check(lead, glead, n, b, d, load, offset)
+    if case == "d-chunks":
+        assert plan["d_chunk"] < d
+
+
+@pytest.mark.cuda
+def test_cuda_forward_raises_for_a_tensor_it_cannot_take():
+    """No fallback: a strided input raises and counts no launch."""
+    _need_card()
+    x, h, m = (torch.from_numpy(a).cuda() for a in _inputs((8,), (), 64, 16, 16))
+    before = cheb_attn.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        cheb_attn(x[:, :, ::2], h[:, ::2], m[:, ::2], torch.from_numpy(ATT16).cuda())
+    assert cheb_attn.launches == before
+
+
+# ---------------------------------------------------------------------------
+# poly_attn: tile edges, head dims, load paths
+# ---------------------------------------------------------------------------
+
+POLY_S = [1, 63, 65, 129, 300]
+POLY_HD = [24, 64, 100, 128, 256]
+
+
+def _poly_check(shape, dtype, causal, sign, want_load=None, offset=0):
+    """poly_attn on the card against its plain version (float32 at the
+    reference tests' 5e-4, bf16 at SEQ_TOL); with ``offset`` q, k and v
+    start that many elements into their storage."""
+    q, k, v = (_randn((int(np.prod(shape)) + offset,), seed, dtype)[offset:].view(shape)
+               for seed in range(3))
+    a1, a2 = (_randn(shape[1:2] + shape[3:], seed, scale=shape[3] ** -0.5) for seed in (3, 4))
+    coeffs = torch.from_numpy(sign * attention_series(8, (-4.0, 4.0))).float().cuda()
+    mod = importlib.import_module("repro_torch.kernels.poly_attn")
+    plan = mod.launch_plan(shape[2], shape[3], dtype, mod._alignment(k, v))
+    if want_load is not None:
+        assert plan["load"] == want_load
+    before = poly_attn.launches
+    got = poly_attn(q, k, v, a1, a2, coeffs, causal=causal)
+    torch.cuda.synchronize()
+    assert poly_attn.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = poly_attn_plain(q, k, v, a1, a2, coeffs, causal=causal)
+    tol = SEQ_TOL[dtype] if dtype == torch.bfloat16 else dict(rtol=5e-4, atol=5e-4)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", POLY_S)
+@pytest.mark.parametrize("hd", POLY_HD)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_cuda_poly_attn_tile_edges_and_head_dims(s, hd, dtype, causal):
+    """Ragged S around the 32- and 64-key tiles and the 128- and 256-row
+    blocks, hd 24, 64, 100, 128 and 256 (bf16 hd 100 takes cp.async, the
+    rest TMA); the negated series on odd S, so that those rows' denominators
+    are negative."""
+    _need_card()
+    size = 2 if dtype == torch.bfloat16 else 4
+    _poly_check((2, 3, s, hd), dtype, causal, -1.0 if s % 2 else 1.0,
+                "tma" if (hd * size) % 16 == 0 else "cp.async")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,offset,copy_bytes", [
+    (torch.float32, 64, 1, 4), (torch.float32, 100, 3, 4), (torch.bfloat16, 64, 2, 4),
+    (torch.bfloat16, 7, 0, 2), (torch.bfloat16, 64, 1, 2), (torch.bfloat16, 130, 0, 4),
+], ids=["f32-4B-aligned", "f32-hd100-4B", "bf16-4B-aligned", "bf16-odd-hd", "bf16-2B-aligned",
+        "bf16-hd130"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("sign", [1.0, -1.0], ids=["series", "negated"])
+def test_cuda_poly_attn_cp_async_path(dtype, hd, offset, copy_bytes, causal, sign):
+    """Bases that TMA cannot take (not 16-byte aligned) and rows that are not
+    16-byte multiples go through cp.async, zero-filled past S and hd."""
+    _need_card()
+    plan = _poly_check((2, 2, 97, hd), dtype, causal, sign, "cp.async", offset)
+    assert plan["copy_bytes"] == copy_bytes
+
+
+@pytest.mark.cuda
+def test_cuda_poly_attn_raises_for_a_tensor_it_cannot_take():
+    """No fallback: a strided input raises, and no launch is counted."""
+    _need_card()
+    q = _randn((1, 2, 32, 128), 0)[..., :64]
+    a = _randn((2, 64), 1)
+    before = poly_attn.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        poly_attn(q, q, q, a, a, torch.ones(3, device="cuda"))
+    assert poly_attn.launches == before

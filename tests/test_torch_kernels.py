@@ -26,11 +26,10 @@ from repro_torch.kernels import cheb_attn as cheb_mod
 from repro_torch.kernels.cheb_attn import (
     MAX_COEFFS,
     _bwd_ld,
-    backward_grid,
+    wave_grid,
     backward_launch_config,
     cheb_attn,
     cheb_attn_backward,
-    launch_config,
 )
 from repro_torch.kernels.ref import cheb_attn_bwd_ref, cheb_attn_ref
 
@@ -111,18 +110,75 @@ def test_nan_from_masked_infinite_score_propagates():
     np.testing.assert_allclose(np.delete(got, 4, 0), np.delete(want, 4, 0), rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("heads,b,d", [(8, 16, 16), (8, 24, 48), (1, 8, 1), (3, 5, 300), (16, 64, 128)])
-def test_launch_config_fits_the_block(heads, b, d):
-    node_tile, d_tile, smem = launch_config(heads, b, d)
-    assert node_tile * d_tile <= 256 and node_tile >= 1
-    assert d_tile >= min(d, 256) and d_tile & (d_tile - 1) == 0
-    assert smem == 4 * MAX_COEFFS + node_tile * 4 * heads * ((b | 1) + 1)
-    assert smem <= 48 * 1024 or node_tile == 1
+FWD_SHAPES = [(8, 16, 16), (8, 8, 16), (8, 24, 48), (1, 8, 1), (3, 5, 300), (16, 64, 128),
+              (8, 16, 4096)]
 
 
-def test_launch_config_rejects_oversized_rows():
+@pytest.mark.parametrize("heads,b,d", FWD_SHAPES)
+def test_forward_launch_plan_follows_the_size_formula(heads, b, d):
+    """The shared memory is fwd_smem_bytes of csrc/cheb_attn.cu: 128 bytes of
+    barriers, the coefficients, each consumer warp's weights (H rows at the
+    odd stride B | 1) and denominators, and two stages of H score segments
+    (a node row apart), the mask span and the neighbour rows; the tile is
+    the largest power of two up to 32 whose stage fits 32 KB, with one
+    consumer warp per node up to 8, plus the producer warp."""
+    plan = cheb_mod.launch_plan(heads, b, d, aligned=True)
+
+    def r4(n):
+        return -(-n // 4) * 4
+
+    def stage(tile, dc):
+        return 4 * (heads * r4((tile + 1) * b) + r4(tile * b) + r4(tile * b * dc))
+
+    tile, dc, warps = plan["tile"], plan["d_chunk"], plan["warps"]
+    assert plan["stages"] == 2
+    assert plan["smem_bytes"] == (128 + 4 * MAX_COEFFS
+                                  + 4 * warps * (r4(heads * (b | 1)) + r4(heads))
+                                  + 2 * stage(tile, dc))
+    assert plan["smem_bytes"] <= 227 * 1024
+    assert tile in (1, 2, 4, 8, 16, 32) and warps == min(8, tile)
+    assert plan["threads"] == 32 * (warps + 1)
+    assert stage(tile, dc) <= 32 * 1024 or tile == 1
+    assert tile == 32 or stage(2 * tile, d) > 32 * 1024
+
+
+def test_forward_launch_plan_serves_sbm_1m_in_tiles_of_16_nodes():
+    """The serving shape (H8 B16 D16) and the bucketed layer's buckets (B 16
+    and 8) take the TMA path, with three blocks' stages fitting an SM."""
+    serve = cheb_mod.launch_plan(8, 16, 16, aligned=True)
+    assert (serve["tile"], serve["warps"], serve["load"]) == (16, 8, "tma")
+    assert 3 * (serve["smem_bytes"] + 1024) <= 228 * 1024
+    cap8 = cheb_mod.launch_plan(8, 8, 16, aligned=True)
+    assert (cap8["tile"], cap8["load"]) == (32, "tma")
+
+
+@pytest.mark.parametrize("b,aligned,load", [
+    (16, True, "tma"), (8, True, "tma"), (16, False, "cp.async"), (24, True, "tma"),
+    (5, True, "cp.async"), (6, True, "cp.async"),
+])
+def test_forward_launch_plan_takes_tma_exactly_when_bulk_copies_can(b, aligned, load):
+    """1-D bulk copies need 16-byte-aligned addresses and sizes: every base
+    pointer aligned and B a multiple of 4 (then the score, mask and
+    neighbour spans of any node tile are too), and D in one chunk."""
+    assert cheb_mod.launch_plan(3, b, 16, aligned)["load"] == load
+
+
+def test_forward_launch_plan_cuts_a_wide_d_into_chunks():
+    """A node whose neighbour tile does not fit two stages goes one node at a
+    time, D cut into the widest chunk that fits (a multiple of 4), on the
+    cp.async path."""
+    plan = cheb_mod.launch_plan(8, 16, 4096, aligned=True)
+    assert plan["tile"] == 1 and plan["warps"] == 1 and plan["load"] == "cp.async"
+    assert plan["d_chunk"] < 4096 and plan["d_chunk"] % 4 == 0
+    wider = cheb_mod.launch_plan(8, 16, plan["d_chunk"] + 4, aligned=True)
+    assert wider["d_chunk"] <= plan["d_chunk"]
+    assert cheb_mod.launch_plan(8, 16, plan["d_chunk"], aligned=True)["d_chunk"] == \
+        plan["d_chunk"]
+
+
+def test_forward_launch_plan_rejects_oversized_rows():
     with pytest.raises(ValueError, match="shared memory"):
-        launch_config(64, 1024, 16)
+        cheb_mod.launch_plan(64, 1024, 16, aligned=True)
 
 
 def _meta(*arrays):
@@ -158,6 +214,34 @@ def test_build_raises_without_nvcc(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["cheb_attn"])
     assert _build.kernel_names() == ["cheb_attn", "flash_attn", "poly_attn", "wkv_chunk"]
+
+
+@pytest.mark.parametrize("edit", ["header", "source", "new header"])
+def test_library_path_hashes_every_header_with_the_source(monkeypatch, tmp_path, edit):
+    """A library's name carries a digest of its source and of every header
+    under csrc/ (flash_attn.cu and poly_attn.cu include attn_common.cuh), so
+    editing a header rebuilds the libraries; checked in a copy of csrc/."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    assert (csrc / "attn_common.cuh").exists()
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    before = {name: _build.library_path(name) for name in _build.kernel_names()}
+    assert {name: _build.library_path(name) for name in before} == before
+    if edit == "header":
+        with open(csrc / "attn_common.cuh", "a") as f:
+            f.write("\n// an edit\n")
+        changed = set(before)
+    elif edit == "source":
+        with open(csrc / "poly_attn.cu", "a") as f:
+            f.write("\n// an edit\n")
+        changed = {"poly_attn"}
+    else:
+        (csrc / "other.cuh").write_text("#pragma once\n")
+        changed = set(before)
+    after = {name: _build.library_path(name) for name in before}
+    assert {name for name in before if after[name] != before[name]} == changed
 
 
 # ---------------------------------------------------------------------------
@@ -354,7 +438,7 @@ def test_backward_launch_config_of_the_training_shape():
     assert (warps, d_chunk) == (8, 16)
     floats = 5 * 128 + 16 + 16 * 20 + 8 * 20 + 2 * 8
     assert smem == 4 * MAX_COEFFS + 8 * 4 * (floats + MAX_COEFFS)
-    assert backward_grid(10**6, warps, 4, sm_count=132) == 132 * 4
+    assert wave_grid(10**6, warps, 4, sm_count=132) == 132 * 4
 
 
 def test_backward_launch_config_opts_in_past_the_default_block():
@@ -366,11 +450,13 @@ def test_backward_launch_config_opts_in_past_the_default_block():
 
 @pytest.mark.parametrize("nodes,warps,per_sm,want", [
     (10, 8, 4, 2), (4099, 8, 4, 513), (10**6, 1, 1, 132), (10**6, 6, 3, 396), (10**6, 8, 0, 132),
+    (62_500, 1, 3, 396), (10, 1, 3, 10),          # the forward: node tiles, one per block
 ])
 def test_backward_grid_is_at_most_one_wave(nodes, warps, per_sm, want):
     """One wave of the blocks the occupancy query says fit (at least one
-    per SM), fewer when there are fewer nodes than warps."""
-    assert backward_grid(nodes, warps, per_sm, sm_count=132) == want
+    per SM), fewer when there are fewer nodes than warps; the forward's
+    tiles go one per block at a time."""
+    assert wave_grid(nodes, warps, per_sm, sm_count=132) == want
 
 
 def test_backward_raises_when_the_library_cannot_load(monkeypatch):

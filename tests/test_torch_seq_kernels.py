@@ -443,6 +443,59 @@ def test_flash_launch_plan_refuses_what_the_kernel_does_not_take():
         plan_of(16, 64, torch.float16)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_poly_launch_plan_fits_shared_memory_for_every_head_dim(dtype):
+    """Every hd in 1..256: as many stages of a key and a value tile as fit
+    the 227 KB a block can have (at most 4, at least 2) beside 4 KB for the
+    alignment, barriers, coefficients, sk and a2; hd pads to whole 64-column
+    panels; 8 consumer warps of 16 query rows per m-tile (two m-tiles for
+    float32 up to hd 128) plus a producer warpgroup; key tiles of 64 (bf16
+    up to hd 128) or 32 keys, k-steps of wgmma (16) and mma.sync (8)."""
+    plan_of = MODULES["poly_attn"].launch_plan
+    size = 2 if dtype == torch.bfloat16 else 4
+    for hd in range(1, 257):
+        plan = plan_of(4096, hd, dtype)
+        stage = 2 * plan["block_n"] * plan["hd_pad"] * size
+        assert 2 <= plan["stages"] <= 4, hd
+        assert plan["smem_bytes"] == 4096 + plan["stages"] * stage <= 227 * 1024, hd
+        assert plan["stages"] == 4 or 4096 + (plan["stages"] + 1) * stage > 227 * 1024, hd
+        assert hd <= plan["hd_pad"] < hd + 128 and plan["hd_pad"] % 64 == 0
+        assert plan["rows_per_warp"] == (32 if size == 4 and plan["hd_pad"] <= 128 else 16)
+        assert plan["block_m"] == 8 * plan["rows_per_warp"] and plan["threads"] == 8 * 32 + 128
+        assert plan["block_n"] == (64 if size == 2 and plan["hd_pad"] <= 128 else 32)
+        assert plan["blocks_per_head"] == -(-4096 // plan["block_m"])
+        assert plan["mma"] == ("wgmma bf16 pair" if size == 2 else "mma.sync 3xTF32")
+        # The sk row of every stage and a2 fit their 1 KB each.
+        assert 4 * plan["stages"] * plan["block_n"] <= 1024 and 4 * plan["hd_pad"] <= 1024
+
+
+@pytest.mark.parametrize("align", [16, 8, 4, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_poly_launch_plan_takes_tma_exactly_when_a_descriptor_describes_the_tensor(dtype, align):
+    """TMA exactly when hd * itemsize is a multiple of 16 bytes and the key
+    and value bases are 16-byte aligned; otherwise cp.async, with 4-byte
+    copies unless bf16 rows are not 4-byte granular."""
+    plan_of = MODULES["poly_attn"].launch_plan
+    size = 2 if dtype == torch.bfloat16 else 4
+    for hd in range(1, 257):
+        plan = plan_of(130, hd, dtype, align)
+        tma = (hd * size) % 16 == 0 and align % 16 == 0
+        assert (plan["load"] == "tma") == tma, hd
+        if not tma:
+            word = size == 4 or (hd % 2 == 0 and align % 4 == 0)
+            assert plan["copy_bytes"] == (4 if word else 2), hd
+
+
+def test_poly_launch_plan_refuses_what_the_kernel_does_not_take():
+    plan_of = MODULES["poly_attn"].launch_plan
+    with pytest.raises(ValueError, match="head dim"):
+        plan_of(16, 257, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        plan_of(16, 0, torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        plan_of(16, 64, torch.float16)
+
+
 def test_flash_alignment_reads_the_base_pointers():
     """The wrapper's alignment, from which launch_plan picks the load path:
     a contiguous view one float past an allocation is 4-byte aligned only."""
