@@ -7,9 +7,9 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. Environment: versions, the card's name and power limit, and the build of
    every CUDA kernel under ``src/repro_torch/kernels/csrc`` (one ``nvcc``
    each, started together), with each kernel's registers and spills and
-   the tensor-core instructions (wgmma, mma.sync) in the flash, poly and
-   cheb_attn libraries; poly's must hold HGMMA (bf16) and
-   HMMA.1688.F32.TF32 (float32).
+   the tensor-core instructions (wgmma, mma.sync) in the flash, poly,
+   cheb_attn and wkv libraries; poly's must hold HGMMA (bf16) and
+   HMMA.1688.F32.TF32 (float32), wkv's HMMA.1688.F32.TF32.
 2. Kernels against their plain PyTorch versions on the card: ``cheb_attn``
    on the inputs the serving path gives it for the ``sbm_1m`` graph (H8
    N1e6 B16 D16, p=16), with isolated rows and negative-denominator rows
@@ -40,17 +40,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    f32) and ``poly_attn`` (the zoo's ``chebyshev`` variant: degree 8,
    domain 4, f32 and bf16, and negated coefficients for negative
    denominators) at ``yi-6b``'s attention widths (B2 H32 S4096 hd128),
-   ``wkv_chunked`` at ``rwkv6-1.6b``'s (BH 8x32, S4096, hd64, chunk 16),
-   and ``ops.cheb_attn_layer_bucketed`` on ``sbm_1m`` with phase 3's
+   ``wkv_chunked`` at ``rwkv6-1.6b``'s (BH 8x32, S4096, hd64, chunk 16;
+   float32 and bf16 inputs, on the fast path, which its ``launch_plan``
+   must name), and ``ops.cheb_attn_layer_bucketed`` on ``sbm_1m`` with phase 3's
    weights. Counts zeroed just before and read just after, held exactly;
    each float32 output against its plain version (wkv also against the scan
-   oracle) at the reference tests' tolerances, bf16 outputs to one bf16 ulp
+   oracle, and its general kernel, launched outside the counted run at the
+   same shape and inputs, against both) at the reference tests'
+   tolerances, bf16 outputs to one bf16 ulp
    (``BF16_TOL``); ``cheb_attn`` on each bucket's inputs against its plain
    version, and the bucketed layer against the flat one; each kernel timed
    beside its plain version, its bound and, for flash,
    ``scaled_dot_product_attention``; flash's and poly's ``launch_plan``
-   (tiles, load path) are printed for both dtypes, and each of the bucketed
-   layer's cheb_attn launches is timed on its own inputs with its plan.
+   (tiles, load path) are printed for both dtypes, wkv's with its wrapper's
+   host time, and each of the bucketed layer's cheb_attn launches is timed
+   on its own inputs with its plan.
 
 The second-to-last line is a JSON object describing each kernel
 (``launches``: cheb_attn's over the serving, training and kernel-API
@@ -83,6 +87,7 @@ F32_ULP = 2.0 ** -24         # unit roundoff of float32
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12     # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12    # H100 SXM, bf16 on the tensor cores, dense
+TF32_FLOPS_PER_S = 495e12    # H100 SXM, TF32 on the tensor cores, dense
 # The reference tests' float32 tolerances for the sequence kernels (tests/test_kernels.py).
 FLASH_TOL = (2e-4, 2e-5)     # :10
 POLY_TOL = (5e-4, 5e-4)      # :136
@@ -392,14 +397,17 @@ def poly_bound(q, p1, causal=True):
 
 def wkv_bound(r, c):
     """r, k, v, w read once, y written once (float32), S0 read and S_final
-    written once; per chunk the decay terms (8 per channel and step), M
-    (2 hd per pair below the diagonal, hd on it), y (2C + 2hd per output)
-    and the state update (2C + 2 per entry), in float32."""
+    written once. Per chunk the decay terms (8 per channel and step) on the
+    CUDA cores in float32, and the products on the tensor cores in 3xTF32
+    (three TF32 products each, as the fast path runs them): M (2 hd per pair
+    below the diagonal, hd on it), y (2C + 2hd per output) and the state
+    update (2C + 2 per entry)."""
     bh, s, hd = r.shape
     nbytes = 4 * r.numel() * r.element_size() + 4 * r.numel() + 2 * 4 * bh * hd * hd + 4 * hd
-    per_chunk = (8 * c * hd + c * (c - 1) * hd + c * hd + c * hd * (2 * c + 2 * hd)
-                 + hd * hd * (2 * c + 2))
-    return bound(nbytes, bh * (s // c) * per_chunk, FP32_FLOPS_PER_S)
+    products = c * (c - 1) * hd + c * hd + c * hd * (2 * c + 2 * hd) + hd * hd * (2 * c + 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = bh * (s // c) * (8 * c * hd / FP32_FLOPS_PER_S + 3 * products / TF32_FLOPS_PER_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def close(label, got, want, rtol, atol):
@@ -443,6 +451,7 @@ def kernel_api_phase(dev, g, params, coeffs, h, nbr_idx, nbr_mask):
     w = torch.sigmoid(randn(bh, s_w, hd_w) + 1.0) * 0.99                 # tests/test_kernels.py:203
     u = randn(hd_w) * 0.1
     S0 = randn(bh, hd_w, hd_w) * 0.1
+    wkv_args = {"f32": (r, kw, vw, w), "bf16": tuple(t.bfloat16() for t in (r, kw, vw, w))}
     plan = ops.degree_bucket_plan(g.nbr_mask)
     plan_dev = [(torch.as_tensor(rows, device=dev), cap) for rows, cap in plan]
     torch.cuda.synchronize()
@@ -452,6 +461,14 @@ def kernel_api_phase(dev, g, params, coeffs, h, nbr_idx, nbr_mask):
     from repro_torch.kernels.flash_attn import _alignment, launch_plan
 
     poly_plan = importlib.import_module("repro_torch.kernels.poly_attn").launch_plan
+    wkv_mod = importlib.import_module("repro_torch.kernels.wkv_chunk")
+    wkv_plans = {}
+    for label, args in wkv_args.items():
+        wkv_plans[label] = wkv_mod.launch_plan(hd_w, 16, args[0].dtype, _alignment(*args))
+        print(f"wkv_chunked launch_plan {tuple(r.shape)} {label}: {wkv_plans[label]}", flush=True)
+        if wkv_plans[label]["path"] != "fast":
+            fail(f"wkv_chunked at rwkv6-1.6b's widths ({label}) takes the "
+                 f"{wkv_plans[label]['path']} path, not the fast one")
     for qq in (qb, q):
         kk = kb if qq is qb else k
         dt = str(qq.dtype).replace('torch.', '')
@@ -469,19 +486,20 @@ def kernel_api_phase(dev, g, params, coeffs, h, nbr_idx, nbr_mask):
             "poly f32": poly_attn(q, k, v, a1, a2, att8, causal=True),
             "poly bf16": poly_attn(qb, kb, vb, a1, a2, att8, causal=True),
             "poly f32 negated": poly_attn(q, k, v, a1, a2, -att8, causal=True),
-            "wkv": wkv_chunked(r, kw, vw, w, u, S0, chunk=16),
+            **{f"wkv {label}": wkv_chunked(*args, u, S0, chunk=16)
+               for label, args in wkv_args.items()},
             "bucketed": ops.cheb_attn_layer_bucketed(params, coeffs, h, nbr_idx, nbr_mask,
                                                      plan=plan_dev),
         }
     torch.cuda.synchronize()
     got = {fn.__name__: fn.launches for fn in counters}
-    want = {"flash_attn": 2, "poly_attn": 3, "wkv_chunked": 1, "cheb_attn": len(plan)}
+    want = {"flash_attn": 2, "poly_attn": 3, "wkv_chunked": 2, "cheb_attn": len(plan)}
     print(f"kernel API sbm_1m/yi-6b/rwkv6-1.6b: launches {got} (want {want}); "
           f"bucket plan {[(len(rows), cap) for rows, cap in plan]}", flush=True)
     if got != want:
         fail("the kernel-API phase's launch counts differ from its calls")
 
-    errs = {"flash_attn": [], "poly_attn": [], "wkv_chunked": []}
+    errs = {"flash_attn": [], "poly_attn": [], "wkv_chunked": [], "wkv general": []}
     with torch.inference_mode():
         for label, (qq, kk, vv), tol in (("flash bf16", (qb, kb, vb), BF16_TOL),
                                          ("flash f32", (q, k, v), FLASH_TOL)):
@@ -501,17 +519,25 @@ def kernel_api_phase(dev, g, params, coeffs, h, nbr_idx, nbr_mask):
             fail("the negated series gave no negative denominator")
         errs["poly_attn"].append(close("poly f32 negated", out.pop("poly f32 negated"),
                                        poly_attn_plain(q, k, v, a1, a2, -att8), *POLY_TOL))
-        y, sf = out.pop("wkv")
-        py, psf = wkv_chunked_plain(r, kw, vw, w, u, S0, chunk=16)
-        errs["wkv_chunked"] += [close("wkv y", y, py, *WKV_TOL), close("wkv S_final", sf, psf,
-                                                                        *WKV_TOL)]
-        del py, psf
-        t0 = time.perf_counter()
-        ry, rsf = wkv_ref(r, kw, vw, w, u, S0)
-        scan_s = time.perf_counter() - t0
-        errs["wkv_chunked"] += [close("wkv y vs scan oracle", y, ry, *WKV_TOL),
-                                close("wkv S_final vs scan oracle", sf, rsf, *WKV_TOL)]
-        del ry, rsf, y, sf
+        # The fast path (counted above) and, outside the counted run, the
+        # general kernel at the same shape, each held against the plain
+        # version and the scan oracle.
+        for label, args in wkv_args.items():
+            results = {"wkv_chunked": out.pop(f"wkv {label}"),
+                       "wkv general": wkv_mod._launch_general(*args, u, S0, 16)}
+            py, psf = wkv_chunked_plain(*args, u, S0, chunk=16)
+            t0 = time.perf_counter()
+            ry, rsf = wkv_ref(*args, u, S0)
+            scan_s = time.perf_counter() - t0
+            for key, (y, sf) in results.items():
+                name = f"wkv {label}" + (" general path" if key == "wkv general" else "")
+                errs[key] += [close(f"{name} y", y, py, *WKV_TOL),
+                              close(f"{name} S_final", sf, psf, *WKV_TOL),
+                              close(f"{name} y vs scan oracle", y, ry, *WKV_TOL),
+                              close(f"{name} S_final vs scan oracle", sf, rsf, *WKV_TOL)]
+            print(f"  wkv {label}: max_abs_err fast path {max(errs['wkv_chunked'][-4:]):.3e}, "
+                  f"general path {max(errs['wkv general'][-4:]):.3e}", flush=True)
+            del py, psf, ry, rsf, results, y, sf
         from repro_torch.kernels.ops import cheb_attn_layer
         from repro_torch.kernels.ref import cheb_attn_ref
         x, h_nb, mask_f = layer1_inputs(params, h, nbr_idx, nbr_mask)
@@ -553,11 +579,13 @@ def kernel_api_phase(dev, g, params, coeffs, h, nbr_idx, nbr_mask):
                 plain_ms=cuda_ms(lambda: poly_attn_plain(qq, kk, vv, a1, a2, att8),
                                  reps=5, warmup=1),
                 library_ms=None, bound=poly_bound(qq, att8.numel()))
-        rows["wkv_chunked f32"] = dict(
-            ms=cuda_ms(lambda: wkv_chunked(r, kw, vw, w, u, S0, chunk=16)),
-            plain_ms=cuda_ms(lambda: wkv_chunked_plain(r, kw, vw, w, u, S0, chunk=16),
-                             reps=5, warmup=1),
-            library_ms=None, bound=wkv_bound(r, 16))
+        for label, args in wkv_args.items():
+            rows[f"wkv_chunked {label}"] = dict(
+                ms=cuda_ms(lambda: wkv_chunked(*args, u, S0, chunk=16)),
+                plain_ms=cuda_ms(lambda: wkv_chunked_plain(*args, u, S0, chunk=16),
+                                 reps=5, warmup=1),
+                library_ms=None, bound=wkv_bound(args[0], 16))
+        wkv_host_ms = wrapper_host_ms(lambda: wkv_chunked(r, kw, vw, w, u, S0, chunk=16))
         ms_bucketed = cuda_ms(lambda: ops.cheb_attn_layer_bucketed(
             params, coeffs, h, nbr_idx, nbr_mask, plan=plan_dev), reps=5)
         ms_flat = cuda_ms(lambda: cheb_attn_layer(params, coeffs, h, nbr_idx, nbr_mask), reps=5)
@@ -572,10 +600,13 @@ def kernel_api_phase(dev, g, params, coeffs, h, nbr_idx, nbr_mask):
         print(f"cheb_attn bucket cap {b['cap']} ({b['rows']} rows): kernel {b['ms']:.4f} ms, "
               f"plain {b['plain_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
               f"{b['gb']:.3f} GB), launch_plan {b['plan']}; {smi}", flush=True)
+    print(f"wkv_chunked f32: wrapper host time {wkv_host_ms:.4f} ms per call (host clock, no "
+          f"sync, median of 50) beside its single-call median "
+          f"{rows['wkv_chunked f32']['ms']:.4f} ms", flush=True)
     print(f"wkv scan oracle (wkv_ref, {s_w} Python steps): {scan_s:.2f} s wall; "
           f"sbm_1m layer 1: bucketed {ms_bucketed:.3f} ms, flat {ms_flat:.3f} ms; {smi}",
           flush=True)
-    del q, k, v, qb, kb, vb, r, kw, vw, w, S0, out
+    del q, k, v, qb, kb, vb, r, kw, vw, w, wkv_args, S0, out
     torch.cuda.empty_cache()
 
     def entry(name, row):
@@ -590,8 +621,12 @@ def kernel_api_phase(dev, g, params, coeffs, h, nbr_idx, nbr_mask):
     poly = entry("poly_attn", rows["poly_attn f32"])
     poly.update(ms_bf16=rows["poly_attn bf16"]["ms"],
                 plain_ms_bf16=rows["poly_attn bf16"]["plain_ms"])
-    return {"flash_attn": flash, "poly_attn": poly,
-            "wkv_chunked": entry("wkv_chunked", rows["wkv_chunked f32"])}, \
+    wkv = entry("wkv_chunked", rows["wkv_chunked f32"])
+    wkv.update(ms_bf16=rows["wkv_chunked bf16"]["ms"],
+               plain_ms_bf16=rows["wkv_chunked bf16"]["plain_ms"],
+               bound_ms_bf16=rows["wkv_chunked bf16"]["bound"][0], host_ms=wkv_host_ms,
+               path=wkv_plans["f32"]["path"], max_abs_err_general=max(errs["wkv general"]))
+    return {"flash_attn": flash, "poly_attn": poly, "wkv_chunked": wkv}, \
         len(plan), bucket_kernel_err, bucket_err, \
         {f"cap {b['cap']}": b["ms"] for b in bucket_rows}
 
@@ -624,12 +659,14 @@ def main() -> None:
     for name, info in sorted(_build.build_info.items()):
         print(f"  {name}: nvcc {info['seconds']:.2f}s; "
               + "; ".join(ptxas_summary(str(info["ptxas"]))), flush=True)
-    for name in ("flash_attn", "poly_attn", "cheb_attn"):
+    for name in ("flash_attn", "poly_attn", "cheb_attn", "wkv_chunk"):
         counts = sass_mma_counts(libs[name])
         print(f"  {name} SASS tensor-core instructions: {counts}", flush=True)
         if name == "poly_attn" and not (any(k.startswith("HGMMA.") for k in counts)
                                         and "HMMA.1688.F32.TF32" in counts):
             fail("poly_attn's library lacks HGMMA (bf16) or HMMA.1688.F32.TF32 (float32)")
+        if name == "wkv_chunk" and "HMMA.1688.F32.TF32" not in counts:
+            fail("wkv_chunk's library lacks HMMA.1688.F32.TF32 (the fast path's products)")
 
     # -- set-up: the sbm_1m graph and the model's weights ------------------
     t0 = time.perf_counter()

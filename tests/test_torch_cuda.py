@@ -9,7 +9,9 @@ panels) and on both load paths (TMA, cp.async); the cheb_attn forward on
 both of its load paths (bulk copies, cp.async), at N around its node tile,
 in every layout and with D cut into chunks; the backward at the training
 shape, at B 1 and D 1, with D cut into chunks, and for every subset of the
-cotangents.
+cotangents; wkv_chunked on the path its ``launch_plan`` names, the fast
+one at hd 16-128 on both load paths (bulk copies, cp.async) and with
+strong decay.
 
 Imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -33,6 +35,8 @@ from repro_torch.kernels.flash_attn import flash_attn_plain
 from repro_torch.kernels.poly_attn import poly_attn_plain
 from repro_torch.kernels.ref import cheb_attn_bwd_ref, cheb_attn_ref, wkv_ref
 from repro_torch.kernels.wkv_chunk import wkv_chunked_plain
+
+WKV = importlib.import_module("repro_torch.kernels.wkv_chunk")
 
 ATT16 = attention_series(16, (-4.0, 4.0)).astype(np.float32)
 
@@ -163,24 +167,118 @@ def test_cuda_poly_attn_matches_plain_version(shape, dtype, causal, sign):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+def _wkv_inputs(bh, s, hd, dtype, offset=0, strong=False):
+    """r, k, v, w as the reference's tests make them (w = 0.3 everywhere and
+    S0 = 0 when ``strong``); with ``offset``, r, k, v and w are contiguous
+    views that start ``offset`` elements into their storage."""
+    def placed(t):
+        if not offset:
+            return t
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+        view = buf[offset:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    r, k, v = (_randn((bh, s, hd), seed, dtype) for seed in range(3))
+    if strong:
+        w = torch.full((bh, s, hd), 0.3, device="cuda").to(dtype)
+        S0 = torch.zeros((bh, hd, hd), device="cuda")
+    else:
+        w = (torch.sigmoid(_randn((bh, s, hd), 3) + 1.0) * 0.99).to(dtype)
+        S0 = _randn((bh, hd, hd), 5, scale=0.1)
+    u = _randn((hd,), 4, scale=0.1)
+    return [placed(t) for t in (r, k, v, w)] + [u, S0]
+
+
+def _check_wkv(args, chunk, path, load=None, ref_tol=1e-4):
+    """One launch on the path ``launch_plan`` names, held against the plain
+    version at 1e-4 and the scan oracle at ``ref_tol``."""
+    r, k, v, w, u, S0 = args
+    plan = WKV.launch_plan(r.shape[2], min(chunk, r.shape[1]), r.dtype,
+                           WKV._alignment(r, k, v, w))
+    assert plan["path"] == path
+    if load is not None:
+        assert plan["load"] == load
+    before = wkv_chunked.launches
+    y, sf = wkv_chunked(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wkv_chunked.launches == before + 1
+    assert y.dtype == sf.dtype == torch.float32
+    py, psf = wkv_chunked_plain(*args, chunk=chunk)
+    torch.testing.assert_close(y, py, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(sf, psf, rtol=1e-4, atol=1e-4)
+    ry, rsf = wkv_ref(*args)
+    torch.testing.assert_close(y, ry, rtol=ref_tol, atol=ref_tol)
+    torch.testing.assert_close(sf, rsf, rtol=ref_tol, atol=ref_tol)
+
+
+# The path each shape of the test below takes: chunk 16 with hd a multiple
+# of 16 is the fast path's.
+WKV_PATHS = {(24, 10): "general", (128, 16): "fast", (64, 16): "fast", (64, 32): "general"}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,s,hd,chunk", [(3, 50, 24, 10), (2, 64, 128, 16), (4, 128, 64, 16),
                                            (2, 96, 64, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_cuda_wkv_chunked_matches_plain_version_and_scan(bh, s, hd, chunk, dtype):
     _need_card()
-    r, k, v = (_randn((bh, s, hd), seed, dtype) for seed in range(3))
-    w = (torch.sigmoid(_randn((bh, s, hd), 3) + 1.0) * 0.99).to(dtype)
-    u = _randn((hd,), 4, scale=0.1)
-    S0 = _randn((bh, hd, hd), 5, scale=0.1)
+    _check_wkv(_wkv_inputs(bh, s, hd, dtype), chunk, WKV_PATHS[(hd, chunk)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,hd", [(1, 16, 16), (3, 16, 32), (1, 16, 64), (3, 16, 128),
+                                     (1, 64, 32), (3, 48, 64), (5, 32, 128), (3, 64, 48),
+                                     (2, 32, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_wkv_fast_path_matches_plain_version_and_scan(bh, s, hd, dtype):
+    """The fast path at hd 16-128, S = C and a few chunks, BH 1 and odd,
+    fed by bulk copies."""
+    _need_card()
+    _check_wkv(_wkv_inputs(bh, s, hd, dtype), 16, "fast", load="bulk")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,offset,path,load", [
+    (torch.float32, 1, "fast", "cp.async"), (torch.bfloat16, 1, "general", "plain"),
+    (torch.bfloat16, 2, "fast", "cp.async")], ids=["f32-4B", "bf16-2B", "bf16-4B"])
+def test_cuda_wkv_fast_path_misaligned_base(dtype, offset, path, load):
+    """Bases 4-byte aligned but off 16 bytes take the fast path's cp.async
+    copies into the same stage layout; a bf16 base off 4 bytes takes the
+    general path."""
+    _need_card()
+    _check_wkv(_wkv_inputs(3, 48, 64, dtype, offset=offset), 16, path, load=load)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,hd", [(3, 48, 64), (2, 32, 128), (1, 16, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_wkv_general_kernel_at_fast_path_shapes(bh, s, hd, dtype):
+    """The general kernel launched at shapes the fast path takes (as
+    chip_smoke.py holds it at rwkv6-1.6b's) agrees with the plain version
+    and the fast path."""
+    _need_card()
+    args = _wkv_inputs(bh, s, hd, dtype)
     before = wkv_chunked.launches
-    y, sf = wkv_chunked(r, k, v, w, u, S0, chunk=chunk)
+    y, sf = WKV._launch_general(*args, 16)
     torch.cuda.synchronize()
     assert wkv_chunked.launches == before + 1
-    assert y.dtype == sf.dtype == torch.float32
-    for want in (wkv_chunked_plain(r, k, v, w, u, S0, chunk=chunk), wkv_ref(r, k, v, w, u, S0)):
-        torch.testing.assert_close(y, want[0], rtol=1e-4, atol=1e-4)
-        torch.testing.assert_close(sf, want[1], rtol=1e-4, atol=1e-4)
+    py, psf = wkv_chunked_plain(*args, chunk=16)
+    torch.testing.assert_close(y, py, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(sf, psf, rtol=1e-4, atol=1e-4)
+    fy, fsf = wkv_chunked(*args, chunk=16)
+    torch.testing.assert_close(y, fy, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(sf, fsf, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_wkv_fast_path_strong_decay_envelope(dtype):
+    """Decays of 0.3 on every channel (1/P up to 0.3^-16 inside a chunk) on
+    the fast path: the scan oracle at the reference's 1e-3
+    (test_torch_seq_kernels.py::test_wkv_chunked_strong_decay_envelope)."""
+    _need_card()
+    _check_wkv(_wkv_inputs(2, 64, 64, dtype, strong=True), 16, "fast", ref_tol=1e-3)
 
 
 @pytest.mark.cuda

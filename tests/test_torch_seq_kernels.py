@@ -388,6 +388,52 @@ def test_shapes_are_checked_before_either_path():
         wkv_chunked(r, r, r, r, torch.ones(4), torch.zeros(2, 4, 5))
 
 
+@pytest.mark.parametrize("hd,c,dtype,align,want", [
+    (64, 16, torch.float32, 16, dict(path="fast", consumer_warps=4, decay_warps=4, threads=288,
+                                     stages=3, smem_bytes=109952, load="bulk")),
+    (64, 16, torch.bfloat16, 16, dict(path="fast", threads=288, stages=3, smem_bytes=85376,
+                                      load="bulk")),
+    (64, 16, torch.float32, 4, dict(path="fast", load="cp.async")),
+    (128, 16, torch.float32, 16, dict(path="fast", consumer_warps=8, decay_warps=4,
+                                      threads=416, smem_bytes=215936)),
+    (16, 16, torch.bfloat16, 16, dict(path="fast", consumer_warps=1, decay_warps=1,
+                                      threads=96)),
+    (48, 16, torch.float32, 4, dict(path="fast", consumer_warps=3, decay_warps=3,
+                                    load="cp.async")),
+    (24, 10, torch.float32, 16, dict(path="general", threads=256, stages=1, smem_bytes=9840,
+                                     load="plain")),
+    (24, 16, torch.float32, 16, dict(path="general")),
+    (64, 32, torch.bfloat16, 16, dict(path="general", smem_bytes=79104)),
+    (8, 8, torch.float32, 16, dict(path="general")),
+    (64, 16, torch.bfloat16, 2, dict(path="general", smem_bytes=46848, load="plain")),
+], ids=["rwkv6-f32", "rwkv6-bf16", "rwkv6-misaligned", "hd128", "hd16", "hd48-misaligned",
+        "hd24-c10", "hd24-c16", "c32", "hd8-c8", "rwkv6-bf16-2B"])
+def test_wkv_launch_plan_names_the_path(hd, c, dtype, align, want):
+    """Chunk 16 with hd a multiple of 16 up to 128 and 4-byte-aligned bases
+    takes the fast path (bulk copies when the bases are 16-byte aligned),
+    every other call the general one with its shared memory."""
+    wkv = MODULES["wkv_chunk"]
+    plan = wkv.launch_plan(hd, c, dtype, align)
+    assert {key: plan[key] for key in want} == want
+    if plan["path"] == "general":
+        assert plan["smem_bytes"] == wkv.shared_bytes(hd, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wkv_fast_path_fits_shared_memory_for_every_head_dim(dtype):
+    """Every fast-path hd fits a block's shared memory, and up to hd 64 two
+    blocks share an SM (228 KB, 1 KB of it reserved per block)."""
+    wkv = MODULES["wkv_chunk"]
+    for hd in range(16, wkv.MAX_HEAD_DIM + 1, 16):
+        plan = wkv.launch_plan(hd, 16, dtype)
+        assert plan["path"] == "fast" and plan["stages"] == 3
+        assert plan["smem_bytes"] <= wkv._SMEM_MAX
+        if hd <= 64:
+            assert 2 * (plan["smem_bytes"] + 1024) <= 228 * 1024
+    with pytest.raises(ValueError, match="head dim"):
+        wkv.launch_plan(wkv.MAX_HEAD_DIM + 16, 16, dtype)
+
+
 def test_wkv_shared_memory_matches_the_kernel_limits():
     assert wkv_chunked.__module__ == "repro_torch.kernels.wkv_chunk"
     wkv = MODULES["wkv_chunk"]

@@ -1,15 +1,19 @@
-"""Where the cheb_attn forward's and poly_attn's time goes on the card.
+"""Where the cheb_attn forward's, poly_attn's and wkv_chunked's time goes on the
+card.
 
-    python3 tools/kernel_ablation.py [--rounds 2]
+    python3 tools/kernel_ablation.py [--rounds 2] [--kernels cheb_attn,poly_attn,...]
 
-Builds copies of ``csrc/cheb_attn.cu`` and ``csrc/poly_attn.cu`` with one part
-of the work cut out (a textual substitution in a copy under
-``build/ablation/``; the sources in the checkout are not touched), loads each
-copy in place of the real library and times it as ``tools/kernel_times.py``
-does (single-call medians), the real kernel first in every round. A cut
-variant computes garbage: only its time means anything. The shapes are the
-main paths': cheb_attn at sbm_1m's serving shape, poly_attn at yi-6b's
-attention widths (bf16 and float32). Needs an NVIDIA GPU and nvcc.
+Builds copies of ``csrc/cheb_attn.cu``, ``csrc/poly_attn.cu`` and
+``csrc/wkv_chunk.cu`` with one part of the work cut out (a textual
+substitution in a copy under ``build/ablation/``; the sources in the
+checkout are not touched), loads each copy in place of the real library and
+times it as ``tools/kernel_times.py`` does (single-call medians), the real
+kernel first in every round. A cut variant computes garbage: only its time
+means anything. The shapes are the main paths': cheb_attn at sbm_1m's
+serving shape, poly_attn at yi-6b's attention widths (bf16 and float32),
+wkv_chunked at rwkv6-1.6b's widths (float32 and bf16 inputs) on its fast
+path and, as "wkv_chunked general", on the general path (the CUDA-core
+kernel that takes every other shape). Needs an NVIDIA GPU and nvcc.
 """
 from __future__ import annotations
 
@@ -30,9 +34,35 @@ sys.path.insert(0, HERE)
 import torch  # noqa: E402
 
 from chip_smoke import YI6B_ATTN, cuda_ms, nvidia_smi  # noqa: E402
-from kernel_times import cheb_inputs  # noqa: E402
+from kernel_times import cheb_inputs, wkv_inputs  # noqa: E402
 
-# kernel -> {variant: [(text in the source, its replacement), ...]}
+# The general wkv kernel's four steps per chunk (the text of csrc/wkv_chunk.cu).
+WKV_GENERAL_DECAY = [("        for (int i = tid; i < hd; i += WKV_THREADS) {\n            float P",
+                      "        for (int i = tid; i < 0; i += WKV_THREADS) {\n            float P")]
+WKV_GENERAL_Y = [
+    ("for (int idx = tid; idx < C * C; idx += WKV_THREADS) {",
+     "for (int idx = tid; idx < 0; idx += WKV_THREADS) {"),
+    ("for (int idx = tid; idx < C * hd; idx += WKV_THREADS) {\n"
+     "            const int t = idx / hd, j",
+     "for (int idx = tid; idx < 0; idx += WKV_THREADS) {\n            const int t = idx / hd, j"),
+]
+WKV_GENERAL_STATE = [
+    ("for (int idx = tid; idx < hh; idx += WKV_THREADS) {\n            const int i = idx / hd, j",
+     "for (int idx = tid; idx < 0; idx += WKV_THREADS) {\n            const int i = idx / hd, j"),
+]
+# The fast kernel's per-chunk calls.
+WKV_FAST_DECAY = [("                decay_terms<T, HD>(st, i, h, __ldg(u + i), grp, lane);\n",
+                   "")]
+WKV_FAST_Y = [("            chunk_output<T, HD>(St, st, vh, vl, y + base + (int64_t)c * C * HD, "
+               "j0, g, q);\n", ""),
+              ("                chunk_scores<T, HD>(st, grp, lane >> 2, lane & 3);\n", "")]
+WKV_FAST_STATE = [("            state_update<T, HD>(St, st, vh, vl, g, q);\n", "")]
+WKV_FAST_V = [("            v_frags<T, HD>(st, j0, g, q, vh, vl);\n", "")]
+
+# Entries whose source is not csrc/<entry>.cu.
+SOURCES = {"wkv_chunked": "wkv_chunk", "wkv_chunked general": "wkv_chunk"}
+
+# entry -> {variant: [(text in the source, its replacement), ...]}
 CUTS = {
     "cheb_attn": {
         "loads only (the consumers skip every node)": [
@@ -67,6 +97,20 @@ CUTS = {
              "kv_p + stage_of(kt) * 2 * C::KV_BYTES + C::KV_BYTES, lane, hd);", ""),
         ],
     },
+    "wkv_chunked": {
+        "no decay terms": WKV_FAST_DECAY,
+        "no y products": WKV_FAST_Y,
+        "no state update": WKV_FAST_STATE,
+        "loads only (no decay terms, no y products, no state update)":
+            WKV_FAST_DECAY + WKV_FAST_Y + WKV_FAST_STATE + WKV_FAST_V,
+    },
+    "wkv_chunked general": {
+        "no decay terms": WKV_GENERAL_DECAY,
+        "no y products": WKV_GENERAL_Y,
+        "no state update": WKV_GENERAL_STATE,
+        "loads only (no decay terms, no y products, no state update)":
+            WKV_GENERAL_DECAY + WKV_GENERAL_Y + WKV_GENERAL_STATE,
+    },
 }
 
 
@@ -79,7 +123,7 @@ def build_variants(kernel: str) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     for header in _build.CSRC_DIR.glob("*.cuh"):
         shutil.copy(header, out_dir)
-    src = (_build.CSRC_DIR / f"{kernel}.cu").read_text()
+    src = (_build.CSRC_DIR / f"{SOURCES.get(kernel, kernel)}.cu").read_text()
     texts = {"as built": src}
     for name, subs in CUTS[kernel].items():
         text = src
@@ -90,10 +134,11 @@ def build_variants(kernel: str) -> dict:
         texts[name] = text
     procs = {}
     for i, (name, text) in enumerate(texts.items()):
-        cu = os.path.join(out_dir, f"{kernel}-{i}.cu")
+        stem = kernel.replace(" ", "_")
+        cu = os.path.join(out_dir, f"{stem}-{i}.cu")
         with open(cu, "w") as f:
             f.write(text)
-        lib = os.path.join(out_dir, f"lib{kernel}-{i}.so")
+        lib = os.path.join(out_dir, f"lib{stem}-{i}.so")
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, cu]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
@@ -124,7 +169,9 @@ def use_library(mod, path: str) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--kernels", default=",".join(CUTS))
     args = ap.parse_args()
+    kernels = args.kernels.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     print(f"gpu: {nvidia_smi()}", flush=True)
@@ -139,13 +186,21 @@ def main() -> None:
     a1, a2 = (torch.randn((heads, hd), generator=gen, device="cuda") * hd**-0.5 for _ in range(2))
     att8 = torch.as_tensor(attention_series(8, (-4.0, 4.0)), dtype=torch.float32, device="cuda")
     qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    wkv = importlib.import_module("repro_torch.kernels.wkv_chunk")
+    r, kw, vw, w, u, S0 = wkv_inputs(gen)
+    rb, kwb, vwb, wb = (t.bfloat16() for t in (r, kw, vw, w))
     calls = {
         "cheb_attn": {"serve": lambda: cheb.cheb_attn(x, h_nb, mask, coeffs)},
         "poly_attn": {"bf16": lambda: poly.poly_attn(qb, kb, vb, a1, a2, att8),
                       "f32": lambda: poly.poly_attn(q, k, v, a1, a2, att8)},
+        "wkv_chunked": {"f32": lambda: wkv.wkv_chunked(r, kw, vw, w, u, S0, chunk=16),
+                        "bf16": lambda: wkv.wkv_chunked(rb, kwb, vwb, wb, u, S0, chunk=16)},
+        "wkv_chunked general": {
+            "f32": lambda: wkv._launch_general(r, kw, vw, w, u, S0, 16),
+            "bf16": lambda: wkv._launch_general(rb, kwb, vwb, wb, u, S0, 16)},
     }
-    mods = {"cheb_attn": cheb, "poly_attn": poly}
-    libs = {kernel: build_variants(kernel) for kernel in CUTS}
+    mods = {"cheb_attn": cheb, "poly_attn": poly, "wkv_chunked": wkv, "wkv_chunked general": wkv}
+    libs = {kernel: build_variants(kernel) for kernel in kernels}
     for rnd in range(args.rounds):
         for kernel, variants in libs.items():
             for name, path in variants.items():

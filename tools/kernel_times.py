@@ -1,14 +1,17 @@
-"""Single-call medians of the cheb_attn forward and of poly_attn on the card,
-at the main paths' shapes, from seeded random inputs; each output is held
-against its plain version first. Quicker than ``chip_smoke.py`` (no graph
-to build, one library per kernel), for iterating on those kernels.
+"""Single-call medians of the cheb_attn forward, poly_attn and wkv_chunked on
+the card, at the main paths' shapes, from seeded random inputs; each output
+is held against its plain version first. Quicker than ``chip_smoke.py`` (no
+graph to build, one library per kernel), for iterating on those kernels.
 
-    python3 tools/kernel_times.py [--kernels cheb_attn,poly_attn] [--reps 20]
+    python3 tools/kernel_times.py [--kernels cheb_attn,poly_attn,wkv_chunked] [--reps 20]
 
 Shapes: cheb_attn at the sbm_1m serving shape (H8 N1e6 B16 D16, p = 17) and
 at the bucketed layer's two buckets (911,115 rows at B16, 88,885 at B8);
 poly_attn at yi-6b's attention widths (B2 H32 S4096 hd128, causal, the
-zoo's degree-8 series on [-4, 4]), bf16 and float32. Needs an NVIDIA GPU.
+zoo's degree-8 series on [-4, 4]), bf16 and float32; wkv_chunked at
+rwkv6-1.6b's widths (BH 8x32, S4096, hd64, chunk 16), float32 and bf16
+inputs, on the path ``launch_plan`` names and on the general path (the
+CUDA-core kernel of every other shape) beside it. Needs an NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -24,8 +27,8 @@ sys.path.insert(0, os.path.join(HERE, "..", "src"))
 import torch  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
-    BF16_TOL, POLY_TOL, RTOL, ATOL, YI6B_ATTN, cheb_attn_bound_ms, cuda_ms, nvidia_smi,
-    poly_bound, wrapper_host_ms,
+    BF16_TOL, POLY_TOL, RTOL, ATOL, RWKV6_WKV, WKV_TOL, YI6B_ATTN, cheb_attn_bound_ms, cuda_ms,
+    nvidia_smi, poly_bound, wkv_bound, wrapper_host_ms,
 )
 
 
@@ -90,9 +93,46 @@ def time_poly(gen, reps):
         del got, want
 
 
+def wkv_inputs(gen):
+    """r, k, v, w, u, S0 at rwkv6-1.6b's widths, as ``chip_smoke.py`` phase 5
+    makes them (float32)."""
+    bh, s, hd = RWKV6_WKV
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    r, k, v = randn(bh, s, hd), randn(bh, s, hd), randn(bh, s, hd)
+    w = torch.sigmoid(randn(bh, s, hd) + 1.0) * 0.99
+    return r, k, v, w, randn(hd) * 0.1, randn(bh, hd, hd) * 0.1
+
+
+def time_wkv(gen, reps):
+    mod = importlib.import_module("repro_torch.kernels.wkv_chunk")
+    r, k, v, w, u, S0 = wkv_inputs(gen)
+    bh, s, hd = r.shape
+    for dtype in (torch.float32, torch.bfloat16):
+        rr, kk, vv, ww = (t.to(dtype) for t in (r, k, v, w))
+        got = mod.wkv_chunked(rr, kk, vv, ww, u, S0, chunk=16)
+        want = mod.wkv_chunked_plain(rr, kk, vv, ww, u, S0, chunk=16)
+        err = max(float((g - x).abs().max()) for g, x in zip(got, want))
+        if not all(torch.allclose(g, x, rtol=WKV_TOL[0], atol=WKV_TOL[1])
+                   for g, x in zip(got, want)):
+            raise SystemExit(f"wkv_chunked {dtype}: kernel disagrees with its plain version")
+        plan = mod.launch_plan(hd, 16, dtype, mod._alignment(rr, kk, vv, ww))
+        ms = cuda_ms(lambda: mod.wkv_chunked(rr, kk, vv, ww, u, S0, chunk=16), reps=reps)
+        general = cuda_ms(lambda: mod._launch_general(rr, kk, vv, ww, u, S0, 16), reps=reps)
+        host = wrapper_host_ms(lambda: mod.wkv_chunked(rr, kk, vv, ww, u, S0, chunk=16))
+        bms, by = wkv_bound(rr, 16)
+        print(f"wkv_chunked {str(dtype).replace('torch.', '')} (BH{bh} S{s} hd{hd} C16): "
+              f"{ms:.4f} ms (single-call median of {reps}), general path {general:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}), wrapper host {host:.4f} ms; max abs err {err:.3e}; "
+              f"plan {plan}", flush=True)
+        del got, want
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernels", default="cheb_attn,poly_attn")
+    ap.add_argument("--kernels", default="cheb_attn,poly_attn,wkv_chunked")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -100,7 +140,8 @@ def main() -> None:
     print(f"gpu: {nvidia_smi()}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name in args.kernels.split(","):
-        {"cheb_attn": time_cheb, "poly_attn": time_poly}[name](gen, args.reps)
+        {"cheb_attn": time_cheb, "poly_attn": time_poly,
+         "wkv_chunked": time_wkv}[name](gen, args.reps)
 
 
 if __name__ == "__main__":
