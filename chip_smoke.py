@@ -55,6 +55,34 @@ Phases (any failure exits non-zero, and no result line is printed):
    (tiles, load path) are printed for both dtypes, wkv's with its wrapper's
    host time, and each of the bucketed layer's cheb_attn launches is timed
    on its own inputs with its plan.
+6. Pack engines (the paper's Matrix and Vector FedGAT, plain float32
+   PyTorch: no kernel runs here, and every kernel's count, zeroed just
+   before each part, must read 0 just after it).
+   6a: ``FedGATConfig()`` (engine ``matrix``) on ``sbm_100k``: the pack
+   build (its time, the part in ``torch.linalg.qr``, and its bytes against
+   the reckoned 13,939,200,000), layer-1 and full-forward times for the
+   matrix and direct engines (the kernel engine's are timed after the
+   counts are read), matrix logits against direct (rtol 1e-3 / atol 1e-4);
+   ``run_federated`` (fedgat, 4 clients, beta 1.0, fedavg, 3 rounds of 3
+   local steps) with s per round, the device time of a local step and its
+   profile; a 2-client server (``refresh_threshold`` 1e9) answering 128
+   Poisson queries at 2000 qps, then a 64-node delta absorbed by 2
+   patches, each client's eps equal to ``mass_drift`` on a CPU copy (rtol
+   1e-5). The delta lifts the padded degree (``apply_delta`` re-symmetrises
+   the degree-capped lists: B 16 -> 32), so a refreshed sbm_100k pack
+   (54.9 GB, reckoned and printed) would not fit beside another; the
+   refreshes run on ``sbm_10k`` with the same widths and delta recipe:
+   the default threshold refreshing, ``refresh(0)`` bit for bit a
+   from-scratch build, client 0 after it against direct on the grown
+   graph, and a server at ``refresh_threshold=1e-9`` refreshing both.
+   6b: engine ``vector`` on ``sbm_1m``: the pack's bytes (6,400,000,000 per
+   client) and build time, 4 clients served and held against direct
+   (rtol 1e-4 / atol 1e-5) before the delta and after ``refresh(0)``.
+   6c: ``distgat`` through the exact engine on ``sbm_1m``, 4 clients: each
+   client's answers equal ``layered_forward`` under its own edge mask.
+   6d: ``tiny``: matrix training on the card from a pack built on the CPU
+   against the same run on the CPU (curves to 1e-6, params rtol 1e-3 /
+   atol 1e-4).
 
 The second-to-last line is a JSON object describing each kernel
 (``launches``: cheb_attn's over the serving, training and kernel-API
@@ -630,6 +658,418 @@ def kernel_api_phase(dev, g, params, coeffs, h, nbr_idx, nbr_mask):
         len(plan), bucket_kernel_err, bucket_err, \
         {f"cap {b['cap']}": b["ms"] for b in bucket_rows}
 
+MATRIX_TOL = (1e-3, 1e-4)    # tests/test_fedgat_engines.py:110
+VECTOR_TOL = (1e-4, 1e-5)    # tests/test_fedgat_engines.py:121
+MATRIX_PACK_BYTES_SBM_100K = 13_939_200_000     # N(g^2 + d g^2 + g + g d) * 4, N 1e5, d 32, g 32
+VECTOR_PACK_BYTES_SBM_1M = 6_400_000_000        # (3 N d g + 2 N g) * 4, N 1e6, d 16, g 32
+
+
+def pack_bytes(pack) -> int:
+    return sum(t.numel() * t.element_size() for t in pack if isinstance(t, torch.Tensor))
+
+
+def reckoned_pack_bytes(engine, n, d, b) -> int:
+    g = 2 * b
+    per_node = g * g + d * g * g + g + g * d if engine == "matrix" else 3 * d * g + 2 * g
+    return 4 * n * per_node
+
+
+def kernel_counters():
+    from repro_torch.kernels import flash_attn, poly_attn, wkv_chunked
+    from repro_torch.kernels.cheb_attn import cheb_attn, cheb_attn_backward
+
+    return (cheb_attn, cheb_attn_backward, flash_attn, poly_attn, wkv_chunked)
+
+
+def zero_kernel_counts() -> None:
+    for fn in kernel_counters():
+        fn.launches = 0
+
+
+def check_no_kernel_launched(label: str) -> None:
+    got = {fn.__name__: fn.launches for fn in kernel_counters()}
+    print(f"{label}: kernel launches {got} (want all 0: the pack engines are plain PyTorch)",
+          flush=True)
+    if any(got.values()):
+        fail(f"{label} launched a kernel")
+
+
+def growth_delta(g, rng, m=64, per_node=2):
+    """m new nodes, features copied from random old ones plus 0.01 noise (as
+    the serve CLI makes them), each with ``per_node`` edges to random old
+    nodes."""
+    from repro_torch.serving import GraphDelta
+
+    feats = g.features[rng.integers(0, g.num_nodes, size=m)]
+    feats = feats + 0.01 * rng.standard_normal(feats.shape).astype(np.float32)
+    new = np.repeat(np.arange(g.num_nodes, g.num_nodes + m), per_node)
+    edges = np.stack([new, rng.integers(0, g.num_nodes, size=m * per_node)], axis=1)
+    return GraphDelta(features=feats, edges=edges)
+
+
+def serve_stream(server, n_q, seed, label, smi):
+    """``n_q`` Poisson queries at 2000 qps over the server's clients through
+    MicroBatcher (max batch 32); prints the latency summary. Returns the
+    results."""
+    from repro_torch.serving import MicroBatcher, Query
+
+    rng = np.random.default_rng(seed)
+    queries = [Query(int(c), int(v)) for c, v in zip(
+        rng.integers(0, server.num_clients, size=n_q),
+        rng.integers(0, server.graph.num_nodes, size=n_q))]
+    arrivals = np.cumsum(rng.exponential(1.0 / 2000.0, size=n_q)).tolist()
+    batcher = MicroBatcher(server.serve_batch, max_batch_size=32, max_wait=0.005)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = batcher.run(queries, arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = batcher.stats.summary()
+    c = server.stats()["cache"]
+    print(f"{label}: {n_q} queries, {int(s['batches'])} batches (mean {s['mean_batch']:.2f}), "
+          f"p50 {s['p50_ms']:.3f} ms, p99 {s['p99_ms']:.3f} ms, {s['throughput_qps']:.1f} qps, "
+          f"wall {wall:.3f} s with {c['misses']} pack builds; cache {c}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}", flush=True)
+    if len(results) != n_q or any(not np.isfinite(r.logits).all() for r in results):
+        fail(f"{label}: served results are missing or not finite")
+    return results
+
+
+def check_served(label, results, want, tol, client=None):
+    mine = [r for r in results if client is None or r.client == client]
+    got = np.stack([r.logits for r in mine])
+    ref = want[[r.node for r in mine]]
+    err = float(np.abs(got - ref).max())
+    ok = got.shape[1] == want.shape[1] and np.allclose(got, ref, rtol=tol[0], atol=tol[1])
+    print(f"  {label}: {len(mine)} answers, max abs err {err:.3e} "
+          f"allclose(rtol={tol[0]},atol={tol[1]})={ok}", flush=True)
+    if not ok:
+        fail(f"{label}: served logits disagree")
+    return err
+
+
+def pack_engines_phase(dev, g1m, params1m, want_direct1m, big="sbm_100k", mid="sbm_10k",
+                       small="tiny"):
+    """Phase 6: the paper's pack engines (no kernel on this path).
+
+    6a: Matrix FedGAT on ``big`` (sbm_100k) at FedGATConfig() widths: the
+    pack build, forwards, federated training and serving with a delta
+    absorbed by patches; the refreshes on ``mid`` (sbm_10k).
+    6b: Vector FedGAT on ``g1m`` (sbm_1m) serving 4 clients with a delta.
+    6c: distgat through the exact engine on ``g1m``, 4 clients.
+    6d: matrix training on ``small`` on the card against the CPU, one pack."""
+    from repro_torch.core import FedGAT, FedGATConfig, get_engine, init_params, layered_forward
+    from repro_torch.core.fedgat_model import graph_tensors
+    from repro_torch.federated import FederatedConfig, run_federated
+    from repro_torch.federated import trainer as fed_trainer
+    from repro_torch.federated.partition import client_neighbor_masks, dirichlet_partition
+    from repro_torch.graphs import make_cora_like, make_sbm
+    from repro_torch.serving import GraphInferenceServer, Query
+    from repro_torch.serving.updates import extend_coverage, initial_coverage, mass_drift
+
+    smi = nvidia_smi()
+
+    # -- 6a: matrix at sbm_100k -------------------------------------------
+    t0 = time.perf_counter()
+    g = make_sbm(big, seed=SEED)
+    cfg = FedGATConfig()
+    params = init_params(torch.Generator().manual_seed(SEED), g.feature_dim, g.num_classes,
+                         cfg, device=dev)
+    h, idx, mask = graph_tensors(g, dev)
+    coeffs = torch.as_tensor(cfg.coeffs(), dtype=torch.float32, device=dev)
+    engines = {name: get_engine(name)(cfg) for name in ("matrix", "direct", "kernel")}
+    print(f"phase 6a {big}: N={g.num_nodes} d={g.feature_dim} B={g.max_degree} "
+          f"C={g.num_classes}; FedGATConfig() engine={cfg.engine} hidden {cfg.hidden} heads "
+          f"{cfg.heads} degree {cfg.degree} basis {cfg.basis}; built in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    zero_kernel_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pack = engines["matrix"].precompute(torch.Generator(device=dev).manual_seed(SEED),
+                                        h, idx, mask)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
+    nbytes = pack_bytes(pack)
+    want_bytes = reckoned_pack_bytes("matrix", g.num_nodes, g.feature_dim, g.max_degree)
+    g2 = 2 * g.max_degree
+    normal = torch.randn((g.num_nodes, g2, g2), device=dev)
+    qr_s = cuda_ms(lambda: torch.linalg.qr(normal), reps=1, warmup=0) / 1e3
+    del normal
+    print(f"matrix pack build {big}: {build_s:.3f} s, of which torch.linalg.qr of "
+          f"{g.num_nodes} {g2}x{g2} matrices {qr_s:.3f} s; pack bytes {nbytes} (reckoned "
+          f"{want_bytes}); peak {build_peak:.2f} GiB; {smi}", flush=True)
+    if nbytes != want_bytes or (big == "sbm_100k" and nbytes != MATRIX_PACK_BYTES_SBM_100K):
+        fail("the matrix pack's size differs from its reckoning")
+    with torch.inference_mode():
+        ms = {}
+        for name in ("matrix", "direct"):
+            eng, pk = engines[name], (pack if name == "matrix" else None)
+            ms[f"layer1 {name}"] = cuda_ms(lambda: eng.apply(
+                params[0], pk, coeffs, h, idx, mask), reps=5, warmup=1)
+            ms[f"forward {name}"] = cuda_ms(lambda: layered_forward(
+                eng, params, coeffs, pk, h, idx, mask), reps=5, warmup=1)
+        torch.cuda.reset_peak_memory_stats()
+        logits_m = layered_forward(engines["matrix"], params, coeffs, pack, h, idx, mask)
+        fwd_peak = torch.cuda.max_memory_allocated() / 2**30
+        want_direct = layered_forward(engines["direct"], params, coeffs, None,
+                                      h, idx, mask).cpu().numpy()
+    got = logits_m.cpu().numpy()
+    err = float(np.abs(got - want_direct).max())
+    ok = np.isfinite(got).all() and np.allclose(got, want_direct, *MATRIX_TOL)
+    print(f"matrix logits vs direct {big}: max abs err {err:.3e} (max |logit| "
+          f"{float(np.abs(want_direct).max()):.3e}) allclose(rtol={MATRIX_TOL[0]},"
+          f"atol={MATRIX_TOL[1]})={ok}; forward peak {fwd_peak:.2f} GiB", flush=True)
+    if not ok:
+        fail("matrix logits disagree with the direct engine")
+    del logits_m
+
+    fed_cfg = FederatedConfig(method="fedgat", num_clients=4, beta=1.0, rounds=3, local_steps=3,
+                              aggregator="fedavg", lr=0.01, seed=SEED, model=cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_federated(g, fed_cfg, device=dev)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    s_round = res["seconds"] / fed_cfg.rounds
+    print(f"train {big}: fedgat matrix engine, 4 clients, 3 rounds x 3 local steps: "
+          f"{s_round:.3f} s per round (trainer clock), wall {train_wall:.2f} s with the pack "
+          f"build; peak {train_peak:.2f} GiB; val {res['val_curve']} test "
+          f"{res['test_curve']}; {smi}", flush=True)
+    if not all(bool(torch.isfinite(p).all()) for p in res["params"].parameters()):
+        fail("phase 6a: trained params are not finite")
+    _, forward = fed_trainer.build_forward(fed_cfg, g, dev, pack=pack)
+    labels = torch.as_tensor(g.labels, dtype=torch.int64, device=dev)
+    tr_mask = (torch.as_tensor(res["partition"].owner == 0, device=dev)
+               & torch.as_tensor(g.train_mask, device=dev))
+    loss_fn = fed_trainer.make_loss_fn(forward, labels)
+    tparams = fed_trainer.param_tree(res["params"])
+    ms["train step"] = cuda_ms(lambda: fed_trainer.grad_of(loss_fn, tparams, mask, tr_mask),
+                               reps=3, warmup=1)
+    print(f"train step {big} (device, matrix engine): forward+backward "
+          f"{ms['train step']:.3f} ms", flush=True)
+    print_step_profile(lambda: fed_trainer.grad_of(loss_fn, tparams, mask, tr_mask))
+    del forward, loss_fn, tparams, res, pack
+    torch.cuda.empty_cache()
+
+    # Serving at `big`, at refresh_threshold 1e9: the delta is absorbed by
+    # patches alone. A refresh is a full build at the grown graph's padded
+    # degree, which apply_delta lifts (it re-symmetrises the degree-capped
+    # neighbour lists: B 16 -> 32 at sbm_100k), so its size is reckoned here
+    # and the refreshes run at `mid`.
+    server = GraphInferenceServer(params, cfg, g, num_clients=2, refresh_threshold=1e9,
+                                  device=dev)
+    results = serve_stream(server, 128, SEED, f"serve {big} matrix", smi)
+    check_served("matrix served vs direct", results, want_direct, MATRIX_TOL)
+    rng = np.random.default_rng(SEED + 1)
+    delta = growth_delta(g, rng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rep = server.apply_update(delta)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    cache = server.stats()["cache"]
+    new_g = server.graph
+    print(f"delta {big} matrix: +{rep['new_nodes']} nodes +{rep['new_edges']} edges in "
+          f"{update_s:.3f} s; eps {rep['drift']} refreshed {rep['refreshed']}; cache {cache}; "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if cache["patches"] != 2 or rep["refreshed"]:
+        fail(f"phase 6a: {cache['patches']} patches (want 2), refreshed {rep['refreshed']}")
+    cov = extend_coverage(initial_coverage(g), new_g, g.max_degree)
+    cpu_params = [{k: v.detach().cpu() for k, v in layer.items()} for layer in params]
+    eps_cpu = mass_drift(cpu_params[0], coeffs.cpu(), cfg.basis, cfg.domain, new_g, cov)
+    for c, eps in rep["drift"].items():
+        if not np.isclose(eps, eps_cpu, rtol=1e-5, atol=0.0):
+            fail(f"phase 6a: client {c}'s eps {eps!r} differs from the CPU copy's {eps_cpu!r}")
+    grown = reckoned_pack_bytes("matrix", new_g.num_nodes, new_g.feature_dim, new_g.max_degree)
+    g4 = 2 * new_g.max_degree
+    print(f"  eps on the card {sorted(rep['drift'].values())} vs mass_drift on a CPU copy "
+          f"{eps_cpu!r} (rtol 1e-5): equal; Thm 3.5 bound {server.drift(0)['bound']:.4f} "
+          f"(the default threshold 2.0 would refresh); the grown graph has B="
+          f"{new_g.max_degree}, so a refreshed pack would hold {grown} bytes and its "
+          f"projectors {4 * new_g.num_nodes * new_g.max_degree * g4 * g4} more while it "
+          "builds", flush=True)
+    del server
+    torch.cuda.empty_cache()
+
+    # Refreshes at `mid`, FedGATConfig() widths, the same delta recipe.
+    gm = make_sbm(mid, seed=SEED)
+    pm = init_params(torch.Generator().manual_seed(SEED), gm.feature_dim, gm.num_classes,
+                     cfg, device=dev)
+    server = GraphInferenceServer(pm, cfg, gm, num_clients=2, device=dev)
+    server.serve_batch([Query(0, 1), Query(1, 2)])
+    delta_m = growth_delta(gm, rng)
+    rep = server.apply_update(delta_m)
+    new_g = server.graph
+    print(f"delta {mid} matrix: B {gm.max_degree} -> {new_g.max_degree}; eps {rep['drift']} "
+          f"refreshed {rep['refreshed']} at the default threshold 2.0; cache "
+          f"{server.stats()['cache']}", flush=True)
+    if server.stats()["cache"]["patches"] != 2:
+        fail("phase 6a: not every resident client was patched")
+    server.refresh(0)
+    with torch.no_grad():
+        fresh = server.engine.precompute(server._client_gen(0), server._h, server._idx,
+                                         server._mask)
+    same = all(torch.equal(a, b) for a, b in zip(server.pack_for(0), fresh)
+               if isinstance(a, torch.Tensor))
+    print(f"  refresh(0) vs a from-scratch precompute under client 0's generator: bitwise "
+          f"equal {same}", flush=True)
+    if not same:
+        fail("phase 6a: refresh(0) is not bit for bit a from-scratch build")
+    del fresh
+    new_h, new_idx, new_mask = graph_tensors(new_g, dev)
+    with torch.inference_mode():
+        want_new = layered_forward(engines["direct"], pm, coeffs, None,
+                                   new_h, new_idx, new_mask).cpu().numpy()
+    del new_h, new_idx, new_mask
+    nodes = list(range(new_g.num_nodes))
+    after = server.serve_batch([Query(0, v) for v in nodes])
+    check_served(
+        "client 0 after refresh vs direct on the grown graph", after, want_new, MATRIX_TOL)
+    del server, after
+    server = GraphInferenceServer(pm, cfg, gm, num_clients=2, refresh_threshold=1e-9,
+                                  device=dev)
+    server.serve_batch([Query(0, 1), Query(1, 2)])
+    rep2 = server.apply_update(delta_m)
+    print(f"  refresh_threshold 1e-9: refreshed {rep2['refreshed']}, cache "
+          f"{server.stats()['cache']}", flush=True)
+    if rep2["refreshed"] != [0, 1]:
+        fail("phase 6a: a server at refresh_threshold 1e-9 did not refresh every client")
+    del server, pm
+    torch.cuda.empty_cache()
+    check_no_kernel_launched(f"phase 6a ({big}, matrix)")
+    # Outside the counted run: the kernel engine's times on the same inputs.
+    with torch.inference_mode():
+        ms["layer1 kernel"] = cuda_ms(lambda: engines["kernel"].apply(
+            params[0], None, coeffs, h, idx, mask), reps=5, warmup=1)
+        ms["forward kernel"] = cuda_ms(lambda: layered_forward(
+            engines["kernel"], params, coeffs, None, h, idx, mask), reps=5, warmup=1)
+    print(f"forward {big} (device, median of 5): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in ms.items() if k != "train step")
+        + f"; kernel engine timed outside the counted run; {smi}", flush=True)
+    del params, h, idx, mask, want_direct, want_new
+    torch.cuda.empty_cache()
+
+    # -- 6b: vector at sbm_1m, 4 clients ----------------------------------
+    zero_kernel_counts()
+    vcfg = FedGATConfig(engine="vector")
+    h1, idx1, mask1 = graph_tensors(g1m, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vpack = get_engine("vector")(vcfg).precompute(
+        torch.Generator(device=dev).manual_seed(SEED), h1, idx1, mask1)
+    torch.cuda.synchronize()
+    vbuild_s = time.perf_counter() - t0
+    vbytes = pack_bytes(vpack)
+    vwant = reckoned_pack_bytes("vector", g1m.num_nodes, g1m.feature_dim, g1m.max_degree)
+    print(f"vector pack build sbm_1m: {vbuild_s:.3f} s; pack bytes {vbytes} (reckoned "
+          f"{vwant}); peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}",
+          flush=True)
+    if vbytes != vwant or (g1m.num_nodes == 1_000_000 and vbytes != VECTOR_PACK_BYTES_SBM_1M):
+        fail("the vector pack's size differs from its reckoning")
+    with torch.inference_mode():
+        ms_v = cuda_ms(lambda: layered_forward(get_engine("vector")(vcfg), params1m, coeffs,
+                                               vpack, h1, idx1, mask1), reps=5, warmup=1)
+    del vpack
+    torch.cuda.empty_cache()
+    # refresh_threshold 1e9: four refreshes at the grown B (12.8 GB a pack)
+    # would crowd the card; client 0 is refreshed by hand below.
+    server = GraphInferenceServer(params1m, vcfg, g1m, num_clients=4, refresh_threshold=1e9,
+                                  device=dev)
+    results = serve_stream(server, 128, SEED + 2, "serve sbm_1m vector", smi)
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    check_served("vector served vs direct", results, want_direct1m, VECTOR_TOL)
+    rng = np.random.default_rng(SEED + 3)
+    delta = growth_delta(g1m, rng)
+    t0 = time.perf_counter()
+    rep = server.apply_update(delta)
+    torch.cuda.synchronize()
+    vupdate_s = time.perf_counter() - t0
+    print(f"delta sbm_1m vector: +{rep['new_nodes']} nodes in {vupdate_s:.3f} s; eps "
+          f"{rep['drift']} (Thm 3.5 bound {server.drift(0)['bound']:.4f}) refreshed "
+          f"{rep['refreshed']}; cache {server.stats()['cache']}", flush=True)
+    if server.stats()["cache"]["patches"] != len(rep["drift"]):
+        fail("phase 6b: not every resident client was patched")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server.refresh(0)
+    torch.cuda.synchronize()
+    new_g = server.graph
+    print(f"  refresh(0): {time.perf_counter() - t0:.3f} s at B={new_g.max_degree}, pack bytes "
+          f"{pack_bytes(server.pack_for(0))}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB", flush=True)
+    new_h, new_idx, new_mask = graph_tensors(new_g, dev)
+    with torch.inference_mode():
+        want_new = layered_forward(get_engine("direct")(vcfg), params1m, coeffs, None,
+                                   new_h, new_idx, new_mask).cpu().numpy()
+    del new_h, new_idx, new_mask
+    nodes = list(range(0, new_g.num_nodes, 9973)) + list(range(g1m.num_nodes, new_g.num_nodes))
+    after = server.serve_batch([Query(0, v) for v in nodes])
+    check_served("client 0 after refresh vs direct on the grown graph", after, want_new,
+                 VECTOR_TOL)
+    del server, after, want_new
+    torch.cuda.empty_cache()
+    check_no_kernel_launched("phase 6b (sbm_1m, vector)")
+    print(f"vector sbm_1m: full forward {ms_v:.3f} ms (device, median of 5); serving peak "
+          f"{serve_peak:.2f} GiB with 4 packs; {smi}", flush=True)
+
+    # -- 6c: distgat through the exact engine at sbm_1m, 4 clients ------
+    zero_kernel_counts()
+    part = dirichlet_partition(g1m.labels, 4, 1.0, SEED)
+    dcfg = FedGATConfig(engine="exact")
+    server = GraphInferenceServer(params1m, dcfg, g1m, method="distgat", num_clients=4,
+                                  partition=part, device=dev)
+    results = serve_stream(server, 128, SEED + 4, "serve sbm_1m distgat exact", smi)
+    vis = client_neighbor_masks(g1m, part)
+    exact = get_engine("exact")(dcfg)
+    worst = 0.0
+    for c in range(4):
+        mine = [r for r in results if r.client == c]
+        if not mine:
+            continue
+        with torch.inference_mode():
+            want = layered_forward(exact, params1m, None, None, h1, idx1,
+                                   torch.as_tensor(vis[c], device=dev)).cpu().numpy()
+        got = np.stack([r.logits for r in mine])
+        diff = float(np.abs(got - want[[r.node for r in mine]]).max())
+        worst = max(worst, diff)
+        if diff != 0.0:
+            fail(f"phase 6c: client {c}'s distgat logits differ from layered_forward under "
+                 f"its own mask (max abs {diff:.3e})")
+    print(f"  distgat: every client's answers equal layered_forward(exact, its own mask) "
+          f"(max abs {worst:.1e})", flush=True)
+    del server, vis, h1, idx1, mask1
+    torch.cuda.empty_cache()
+    check_no_kernel_launched("phase 6c (sbm_1m, distgat exact)")
+
+    # -- 6d: matrix training on a small graph, card against CPU ----------
+    zero_kernel_counts()
+    tiny = make_cora_like(small, seed=SEED)
+    tcfg = FederatedConfig(method="fedgat", num_clients=4, beta=1.0, rounds=3, local_steps=3,
+                           aggregator="fedavg", seed=SEED, model=FedGATConfig())
+    tpack = FedGAT(tcfg.model, device="cpu").precommunicate(
+        fed_trainer.pack_generator(SEED, "cpu"), tiny)
+    on_gpu = run_federated(tiny, tcfg, device=dev, pack=tpack)
+    on_cpu = run_federated(tiny, tcfg, device="cpu", pack=tpack)
+    curves = (np.allclose(on_gpu["val_curve"], on_cpu["val_curve"], atol=1e-6)
+              and np.allclose(on_gpu["test_curve"], on_cpu["test_curve"], atol=1e-6))
+    perr = max(float((a.detach().cpu() - b.detach()).abs().max())
+               for a, b in zip(on_gpu["params"].parameters(), on_cpu["params"].parameters()))
+    pclose = all(torch.allclose(a.detach().cpu(), b.detach(), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+                 for a, b in zip(on_gpu["params"].parameters(), on_cpu["params"].parameters()))
+    print(f"{small} matrix training check: one CPU-built pack, card vs CPU curves equal (atol "
+          f"1e-6) {curves}, final params max abs diff {perr:.3e} allclose(rtol={GRAD_RTOL},"
+          f"atol={GRAD_ATOL}) {pclose}; val {on_gpu['val_curve']}", flush=True)
+    if not (curves and pclose):
+        fail(f"{small}: matrix training on the card disagrees with the CPU")
+    check_no_kernel_launched(f"phase 6d ({small}, matrix training)")
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -944,6 +1384,12 @@ def main() -> None:
     api, bucket_launches, bucket_kernel_err, bucket_err, bucket_ms = kernel_api_phase(
         dev, g, params[0], coeffs, h, nbr_idx, nbr_mask)
     print(f"kernel API phase: {time.perf_counter() - t0:.1f}s")
+
+    # -- phase 6: the pack engines (no kernel on this path) ----------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pack_engines_phase(dev, g, params, want_direct)
+    print(f"pack engine phase: {time.perf_counter() - t0:.1f}s")
     print(f"total {time.perf_counter() - t_start:.1f}s")
 
     print(f"gpu: {nvidia_smi()}")

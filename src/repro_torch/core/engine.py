@@ -1,20 +1,33 @@
 """Layer-1 engine registry for the FedGAT model.
 
-The port of ``repro/core/engine.py`` with the pack-free engines:
+The port of ``repro/core/engine.py``. The paper's interchangeable
+approximations of the first GAT layer, each an :class:`Engine` registered
+under a name:
 
+* ``matrix`` — Matrix FedGAT (paper §4, Algorithms 1 and 2;
+  core/fedgat_matrix.py): a projector-matrix pack;
+* ``vector`` — Vector FedGAT (paper Appendix F; core/fedgat_vector.py):
+  a disjoint-support vector pack;
 * ``direct`` — the polynomial-attention oracle (core/poly_attention.py);
 * ``kernel`` — the same layer through the fused CUDA ``cheb_attn`` kernel
   (kernels/ops.py);
 * ``exact``  — the plain GAT layer (core/gat.py).
 
-The pack-building ``matrix`` and ``vector`` engines are not registered in
-this package yet. ``get_engine`` raises :class:`UnknownEngineError` for
-any name that is not registered.
+::
+
+    engine = get_engine("matrix")(cfg)     # cfg: FedGATConfig
+    pack = engine.precompute(gen, h, nbr_idx, nbr_mask)
+    x = engine.apply(params, pack, coeffs, h, nbr_idx, nbr_mask, concat=True)
+
+``gen`` is a ``torch.Generator`` on the features' device. ``get_engine``
+raises :class:`UnknownEngineError` for any name that is not registered.
 """
 from __future__ import annotations
 
-from typing import Callable, ClassVar, Dict, List, Type
+from typing import Any, Callable, ClassVar, Dict, List, Optional, Type
 
+from repro_torch.core.fedgat_matrix import fedgat_layer_matrix, precompute_pack
+from repro_torch.core.fedgat_vector import fedgat_layer_vector, precompute_vector_pack
 from repro_torch.core.gat import gat_layer_nbr
 from repro_torch.core.poly_attention import poly_gat_layer
 from repro_torch.kernels.ops import cheb_attn_layer
@@ -59,13 +72,18 @@ def get_engine(name: str) -> Type["Engine"]:
 
 
 class Engine:
-    """Layer-1 engine interface: built from a ``FedGATConfig``;
-    :meth:`apply` is the client-side layer-1 update. ``pack`` is the
-    pre-communicated payload of the pack-building engines of the reference
-    and is ``None`` for every engine registered here."""
+    """Layer-1 engine interface, built from a ``FedGATConfig`` (series
+    basis, domain and degree, obfuscation constant ``r``):
+
+    * :meth:`precompute` — the one-shot pre-training communication round
+      (server side). Returns the engine's pack, or ``None`` for engines
+      that need none.
+    * :meth:`apply` — the client-side layer-1 update from the pack (or
+      directly from features, for pack-free engines).
+    """
 
     name: ClassVar[str] = "?"
-    needs_pack: ClassVar[bool] = False     # no engine registered here builds a pack
+    needs_pack: ClassVar[bool] = False     # precompute() returns a payload
     needs_coeffs: ClassVar[bool] = True    # apply() consumes series coeffs
     # Pre-training communication accounting model ("matrix" | "vector" |
     # "none"; see federated/comm.py). "direct" and "kernel" simulate the
@@ -76,8 +94,44 @@ class Engine:
     def __init__(self, cfg):
         self.cfg = cfg
 
+    def precompute(self, gen, h, nbr_idx, nbr_mask) -> Optional[Any]:
+        return None
+
     def apply(self, params, pack, coeffs, h, nbr_idx, nbr_mask, *, concat=True):
         raise NotImplementedError
+
+
+@register_engine("matrix")
+class MatrixEngine(Engine):
+    """Matrix FedGAT (paper §4, Algorithms 1 and 2): projector-matrix pack."""
+
+    needs_pack = True
+
+    def precompute(self, gen, h, nbr_idx, nbr_mask):
+        return precompute_pack(gen, h, nbr_idx, nbr_mask, self.cfg.r)
+
+    def apply(self, params, pack, coeffs, h, nbr_idx, nbr_mask, *, concat=True):
+        return fedgat_layer_matrix(
+            params, pack, h, coeffs,
+            basis=self.cfg.basis, domain=self.cfg.domain, concat=concat,
+        )
+
+
+@register_engine("vector")
+class VectorEngine(Engine):
+    """Vector FedGAT (paper Appendix F): disjoint-support vector pack."""
+
+    needs_pack = True
+    comm_cost_model = "vector"
+
+    def precompute(self, gen, h, nbr_idx, nbr_mask):
+        return precompute_vector_pack(gen, h, nbr_idx, nbr_mask)
+
+    def apply(self, params, pack, coeffs, h, nbr_idx, nbr_mask, *, concat=True):
+        return fedgat_layer_vector(
+            params, pack, h, coeffs,
+            basis=self.cfg.basis, domain=self.cfg.domain, concat=concat,
+        )
 
 
 @register_engine("direct")

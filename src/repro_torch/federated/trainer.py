@@ -16,16 +16,24 @@ partition and the update math are the reference's, so the two packages'
 trajectories agree given the same initial params.
 
 Supported methods:
-  fedgat   — the paper's algorithm (engine: any engine the port registers)
+  fedgat   — the paper's algorithm (engine: any registered engine; the
+             default ``matrix`` is the paper's own)
   distgat  — GAT, cross-client edges dropped, FedAvg (baseline)
   fedgcn   — FedGCN: exact pre-communicated aggregates, i.e. a GCN on the
              full graph with local losses
   gat/gcn  — centralised baselines via train_centralized()
 
+Under the pack engines (``matrix``, ``vector``) :func:`build_forward`
+runs the one pre-training communication round: the pack is drawn from a
+generator on the run's device, seeded from ``cfg.seed`` through a
+splitmix64 derivation (:func:`pack_generator`), a stream separate from the
+parameter initialisation's. ``pack=`` feeds a pack built elsewhere instead
+(the reference's, or one built on another device).
+
 Not ported yet, and refused by :class:`Trainer` with ``NotImplementedError``:
 the ``shard_map`` backend, cohort streaming (``max_concurrent_clients``,
-buffered aggregation, churn), every privacy mechanism, and the ``matrix``
-and ``vector`` engines.
+buffered aggregation, churn) and every privacy mechanism, pack noise
+included.
 """
 from __future__ import annotations
 
@@ -40,8 +48,8 @@ from torch import nn
 
 from repro_torch import telemetry
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch._rng import fold_in, generator
 from repro_torch._tree import tree_leaves, tree_map, tree_unflatten
-from repro_torch.core.engine import registered_engines
 from repro_torch.core.fedgat_model import FedGAT, FedGATConfig, graph_tensors, params_from_numpy
 from repro_torch.core.gat import masked_accuracy, masked_cross_entropy
 from repro_torch.core.gcn import gcn_forward_nbr, init_gcn_params, normalized_nbr_coeffs
@@ -106,13 +114,30 @@ def param_tree(params) -> List[Dict[str, torch.Tensor]]:
     return [{k: v.detach() for k, v in layer.items()} for layer in params]
 
 
+PACK_STREAM = 0x7061636B      # "pack": the pack generator's stream under the run's seed
+
+
+def pack_generator(seed: int, device: DeviceLike) -> torch.Generator:
+    """The generator a run seeded ``seed`` draws its pack from, on
+    ``device``: a splitmix64 derivation of the seed, so it is a stream apart
+    from the parameter initialisation's ``torch.Generator().manual_seed(seed)``."""
+    return generator(fold_in(seed, PACK_STREAM), device)
+
+
 def build_forward(
-    cfg: FederatedConfig, g: Graph, device: torch.device
+    cfg: FederatedConfig, g: Graph, device: torch.device, pack: Optional[Any] = None,
 ) -> Tuple[Callable, Callable]:
     """Returns ``(init_fn(gen) -> params, forward(params, nbr_mask) -> logits)``.
-    The graph's arrays go to ``device`` here, once for the run."""
+    The graph's arrays go to ``device`` here, once for the run. For
+    fedgat/distgat the one-shot pack is communicated here: ``pack`` when
+    given (moved to ``device``), else precomputed under
+    :func:`pack_generator`."""
     if cfg.method in ("fedgat", "distgat"):
         model = FedGAT(method_model_config(cfg), device=device)
+        if pack is not None:
+            model.install_pack(pack, g)
+        else:
+            model.precommunicate(pack_generator(cfg.seed, model.device), g)
 
         def init_fn(gen):
             return param_tree(model.init(gen, g))
@@ -326,29 +351,27 @@ class Trainer:
             )
         if cfg.method not in ("fedgat", "distgat", "fedgcn"):
             raise ValueError(f"unknown federated method {cfg.method!r}")
-        engine = method_model_config(cfg).engine
-        if cfg.method != "fedgcn" and engine not in registered_engines():
-            raise NotImplementedError(
-                f"engine {engine!r} is not ported to repro_torch yet; "
-                f"registered engines are {registered_engines()}"
-            )
         self.cfg = cfg
         self.device = resolve_device(device)
 
-    def run(self, g: Graph, params: Optional[Any] = None) -> Dict[str, Any]:
+    def run(self, g: Graph, params: Optional[Any] = None,
+            pack: Optional[Any] = None) -> Dict[str, Any]:
         """Train on ``g``. ``params`` are the initial global params (an
         ``nn.ModuleList`` or the reference's list of dicts of arrays); by
         default they are drawn from ``torch.Generator().manual_seed(seed)``.
-        Torch cannot reproduce ``jax.random`` bits, so passing the
-        reference's own initial params is the only way to hold the two
-        packages' trajectories against each other."""
-        return self._run_vmap(g, params)
+        ``pack`` is the pre-communicated pack of a pack engine (the port's,
+        or the reference's as numpy arrays); by default it is precomputed
+        under :func:`pack_generator`. Torch cannot reproduce ``jax.random``
+        bits, so passing the reference's own initial params (and pack) is
+        the only way to hold the two packages' trajectories against each
+        other."""
+        return self._run_vmap(g, params, pack)
 
-    def _run_vmap(self, g: Graph, params: Optional[Any]) -> Dict[str, Any]:
+    def _run_vmap(self, g: Graph, params: Optional[Any], pack: Optional[Any]) -> Dict[str, Any]:
         cfg, dev = self.cfg, self.device
         part = dirichlet_partition(g.labels, cfg.num_clients, cfg.beta, cfg.seed)
         nb_masks, tr_masks = client_masks(cfg, g, part, dev)
-        init_fn, forward = build_forward(cfg, g, dev)
+        init_fn, forward = build_forward(cfg, g, dev, pack)
         if params is None:
             gparams = init_fn(torch.Generator().manual_seed(cfg.seed))
         else:
@@ -414,12 +437,14 @@ def run_federated(
     backend: Optional[str] = None,
     device: DeviceLike = None,
     params: Optional[Any] = None,
+    pack: Optional[Any] = None,
 ) -> Dict[str, Any]:
     """Run federated training; ``backend`` overrides ``cfg.backend``,
-    ``params`` are the initial params (see :meth:`Trainer.run`)."""
+    ``params`` are the initial params and ``pack`` the pre-communicated
+    pack (see :meth:`Trainer.run`)."""
     if backend is not None:
         cfg = replace(cfg, backend=backend)
-    return Trainer(cfg, device=device).run(g, params=params)
+    return Trainer(cfg, device=device).run(g, params=params, pack=pack)
 
 
 # ---------------------------------------------------------------------------
@@ -438,9 +463,11 @@ def train_centralized(
     *,
     device: DeviceLike = None,
     params: Optional[Any] = None,
+    pack: Optional[Any] = None,
 ) -> Dict[str, Any]:
     """Centralised GAT / GCN / FedGAT-approximation baselines (Table 1).
-    ``params`` are the initial params, as for :meth:`Trainer.run`."""
+    ``params`` are the initial params and ``pack`` the pack of a pack
+    engine, as for :meth:`Trainer.run`."""
     dev = resolve_device(device)
     labels = torch.as_tensor(g.labels, dtype=torch.int64, device=dev)
     gen = torch.Generator().manual_seed(seed)
@@ -454,6 +481,10 @@ def train_centralized(
     else:
         mcfg = mcfg or FedGATConfig(engine="exact" if model == "gat" else "direct")
         net = FedGAT(mcfg, device=dev)
+        if pack is not None:
+            net.install_pack(pack, g)
+        else:
+            net.precommunicate(pack_generator(seed, net.device), g)
         init = param_tree(net.init(gen, g))
 
         def forward(p):

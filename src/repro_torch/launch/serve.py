@@ -2,16 +2,18 @@
 
     python -m repro_torch.launch.serve --mode graph --ckpt BUNDLE_DIR --engine kernel
     python -m repro_torch.launch.serve --mode graph --clients 4 --rounds 20
+    python -m repro_torch.launch.serve --mode graph --method distgat --fast --device cpu
 
 Loads a serving bundle (written by either package's ``save_bundle``) or,
-without ``--ckpt``, quick-trains one with the port's federated Trainer;
+without ``--ckpt``, quick-trains one with the port's federated Trainer on
+``FedGATConfig()`` (the paper's ``matrix`` engine), as the reference does;
 then serves a seeded Poisson query stream through the microbatching
-scheduler, absorbs a graph delta and reports latency and cache accounting.
-The reference quick-trains ``FedGATConfig()``, whose ``matrix`` engine the
-port does not have yet, so the port trains through ``--engine`` (default
-``kernel``). ``--mode lm`` waits for the language-model zoo. ``--device
-cpu`` trains and serves through the plain PyTorch versions; the default is
-the CUDA device.
+scheduler, absorbs a graph delta (patching every resident client's pack
+and refreshing those whose Thm 3.5 bound crosses ``--refresh-threshold``)
+and reports latency, drift and cache accounting. ``--engine`` overrides
+the serving engine only. ``--mode lm`` waits for the language-model zoo.
+``--device cpu`` trains and serves through the plain PyTorch versions; the
+default is the CUDA device.
 """
 from __future__ import annotations
 
@@ -29,22 +31,21 @@ def run_graph(argv=None) -> None:
                     help="make_cora_like or make_sbm preset")
     ap.add_argument("--ckpt", default="",
                     help="serving bundle directory (default: quick-train one)")
-    ap.add_argument("--method", default="fedgat", choices=["fedgat"],
-                    help="the port serves fedgat only; distgat waits for its serving slice")
+    ap.add_argument("--method", default="fedgat", choices=["fedgat", "distgat"])
     ap.add_argument("--clients", type=int, default=4)
     ap.add_argument("--rounds", type=int, default=20,
                     help="quick-train rounds (without --ckpt)")
     ap.add_argument("--engine", default=None,
-                    choices=["direct", "kernel", "exact"],
-                    help="serving engine override (default: the checkpoint's); "
-                    "without --ckpt also the quick-train engine (default: kernel, "
-                    "as the port has no matrix engine yet)")
+                    choices=["matrix", "vector", "direct", "kernel", "exact"],
+                    help="serving engine override (default: the checkpoint's)")
     ap.add_argument("--queries", type=int, default=256)
     ap.add_argument("--qps", type=float, default=2000.0,
                     help="mean arrival rate of the synthetic query stream")
     ap.add_argument("--max-batch-size", type=int, default=32)
     ap.add_argument("--max-wait", type=float, default=0.005,
                     help="scheduler deadline (seconds)")
+    ap.add_argument("--refresh-threshold", type=float, default=2.0,
+                    help="Thm 3.5 logit bound that triggers a pack refresh")
     ap.add_argument("--update-nodes", type=int, default=8,
                     help="new nodes in the demo graph delta (0 = skip)")
     ap.add_argument("--seed", type=int, default=0)
@@ -69,21 +70,23 @@ def run_graph(argv=None) -> None:
 
         from repro_torch.core import FedGATConfig
         from repro_torch.federated import FederatedConfig, Trainer
+        from repro_torch.federated.trainer import method_model_config
         from repro_torch.serving import save_bundle
 
         cfg = FederatedConfig(
             method=args.method, num_clients=args.clients, rounds=args.rounds,
-            seed=args.seed, model=FedGATConfig(engine=args.engine or "kernel"),
+            seed=args.seed, model=FedGATConfig(),
         )
         t0 = time.time()
         res = Trainer(cfg, device=args.device).run(g)
-        print(f"trained: method={args.method} engine={cfg.model.engine} "
+        print(f"trained: method={args.method} engine={method_model_config(cfg).engine} "
               f"rounds={args.rounds} best_test={res['best_test']:.4f} "
               f"in {time.time() - t0:.1f}s")
         ckpt_dir = tempfile.mkdtemp(prefix="fedgat_serve_")
         save_bundle(ckpt_dir, res["params"], cfg, step=args.rounds)
     server = GraphInferenceServer.from_checkpoint(
-        ckpt_dir, g, engine=args.engine, method=args.method, device=args.device,
+        ckpt_dir, g, engine=args.engine, refresh_threshold=args.refresh_threshold,
+        device=args.device,
     )
     print(f"serving: engine={server.cfg.engine} method={server.method} "
           f"clients={server.num_clients} nodes={g.num_nodes} device={server.device}")
@@ -121,16 +124,25 @@ def run_graph(argv=None) -> None:
             np.arange(g.num_nodes, n_new),
             rng.integers(0, g.num_nodes, size=m),
         ], axis=1)
-        report = server.apply_update(GraphDelta(features=feats, edges=edges))
+        owners = (
+            rng.integers(0, server.num_clients, size=m)
+            if server.method == "distgat" else None
+        )
+        report = server.apply_update(
+            GraphDelta(features=feats, edges=edges, owners=owners)
+        )
+        worst = max(report["drift"].values(), default=0.0)
         print(f"delta: +{report['new_nodes']} nodes +{report['new_edges']} edges "
-              f"-> {report['num_nodes']} nodes")
+              f"-> {report['num_nodes']} nodes; worst_eps={worst:.4f} "
+              f"refreshed={report['refreshed']}")
         post = server.serve_batch(
             [Query(0, int(n)) for n in range(g.num_nodes, n_new)]
         )
         print(f"post-update: served {len(post)} new-node queries")
 
     c = server.stats()["cache"]
-    print(f"cache: entries={c['entries']} hits={c['hits']} misses={c['misses']}")
+    print(f"cache: entries={c['entries']} hits={c['hits']} misses={c['misses']} "
+          f"patches={c['patches']} refreshes={c['refreshes']}")
 
 
 def main(argv=None) -> None:

@@ -11,7 +11,10 @@ in every layout and with D cut into chunks; the backward at the training
 shape, at B 1 and D 1, with D cut into chunks, and for every subset of the
 cotangents; wkv_chunked on the path its ``launch_plan`` names, the fast
 one at hd 16-128 on both load paths (bulk copies, cp.async) and with
-strong decay.
+strong decay. The pack engines (``matrix``, ``vector``; plain PyTorch, no
+kernel) on the card against the CPU at ``tiny`` and ``sbm_1k``, their
+training, a pack cache saved on the CPU and loaded onto the card, and a
+server's refresh bit for bit.
 
 Imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -19,6 +22,7 @@ Imports no JAX, so it also runs where only PyTorch is installed:
 
 Without a CUDA device every test skips.
 """
+import copy
 import importlib
 
 import numpy as np
@@ -669,3 +673,123 @@ def test_cuda_poly_attn_raises_for_a_tensor_it_cannot_take():
     with pytest.raises(ValueError, match="contiguous"):
         poly_attn(q, q, q, a, a, torch.ones(3, device="cuda"))
     assert poly_attn.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The pack engines (matrix, vector) on the card: plain float32 PyTorch, no
+# kernel. Tolerances: tests/test_fedgat_engines.py:110 and :121.
+# ---------------------------------------------------------------------------
+
+PACK_LAYER_TOL = {"matrix": dict(rtol=1e-3, atol=1e-4), "vector": dict(rtol=1e-4, atol=1e-5)}
+
+
+def _pack_case(graph, engine):
+    from repro_torch.core import get_engine, init_params
+    from repro_torch.core.fedgat_model import graph_tensors
+    from repro_torch.graphs import make_sbm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = make_cora_like("tiny", seed=0) if graph == "tiny" else make_sbm("sbm_1k", seed=0)
+    cfg = FedGATConfig(engine=engine)
+    params = init_params(torch.Generator().manual_seed(0), g.feature_dim, g.num_classes, cfg,
+                         device="cpu")
+    coeffs = torch.as_tensor(cfg.coeffs(), dtype=torch.float32)
+    return g, cfg, get_engine(engine)(cfg), params, coeffs, graph_tensors(g, torch.device("cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", ["tiny", "sbm1k"])
+@pytest.mark.parametrize("engine", ["matrix", "vector"])
+def test_cuda_pack_engines_match_the_cpu(graph, engine):
+    """A pack built on the CPU and moved to the card serves the CPU's logits;
+    a pack drawn on the card serves the direct engine's."""
+    _need_card()
+    from repro_torch.core import get_engine, layered_forward, pack_from_numpy
+
+    g, cfg, eng, params, coeffs, arrays = _pack_case(graph, engine)
+    pack = eng.precompute(torch.Generator().manual_seed(1), *arrays)
+    want = layered_forward(eng, params, coeffs, pack, *arrays).detach()
+    dev = torch.device("cuda")
+    dparams = copy.deepcopy(params).to(dev)
+    darrays = [a.to(dev) for a in arrays]
+    before = (cheb_attn.launches, cheb_attn_backward.launches)
+    got = layered_forward(eng, dparams, coeffs.to(dev), pack_from_numpy(pack, device=dev),
+                          *darrays)
+    torch.testing.assert_close(got.detach().cpu(), want, **PACK_LAYER_TOL[engine])
+    drawn = eng.precompute(torch.Generator(device=dev).manual_seed(1), *darrays)
+    again = eng.precompute(torch.Generator(device=dev).manual_seed(1), *darrays)
+    assert all(torch.equal(a, b) for a, b in zip(drawn, again) if isinstance(a, torch.Tensor))
+    on_card = layered_forward(eng, dparams, coeffs.to(dev), drawn, *darrays)
+    direct = layered_forward(get_engine("direct")(cfg), dparams, coeffs.to(dev), None, *darrays)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(on_card, direct, **PACK_LAYER_TOL[engine])
+    assert (cheb_attn.launches, cheb_attn_backward.launches) == before   # no kernel on this path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["matrix", "vector"])
+def test_cuda_pack_cache_saves_on_the_cpu_and_loads_onto_the_card(engine, tmp_path):
+    _need_card()
+    from repro_torch.serving import GraphDelta, GraphInferenceServer, PackCache, Query
+
+    g, cfg, _, params, _, _ = _pack_case("tiny", engine)
+    cpu = GraphInferenceServer(params, cfg, g, num_clients=2, device="cpu")
+    qs = [Query(c, v) for c in (0, 1) for v in range(g.num_nodes)]
+    cpu.serve_batch(qs)
+    cpu.apply_update(GraphDelta(features=g.features[:2] + 0.01,
+                                edges=np.array([[g.num_nodes, 3], [g.num_nodes + 1, 9], [0, 7]])))
+    cpu.save_cache(str(tmp_path))
+    cache = PackCache.load(str(tmp_path), device="cuda")
+    for c in (0, 1):
+        for a, b in zip(cache.peek(c).pack, cpu.cache.peek(c).pack):
+            if isinstance(a, torch.Tensor):
+                assert a.is_cuda and torch.equal(a.cpu(), b)
+    card = GraphInferenceServer(params, cfg, cpu.graph, num_clients=2, device="cuda",
+                                cache_dir=str(tmp_path))
+    qs = [Query(c, v) for c in (0, 1) for v in range(cpu.graph.num_nodes)]
+    got = np.stack([r.logits for r in card.serve_batch(qs)])
+    assert card.cache.misses == cache.misses                # warm: no pack rebuilt
+    want = np.stack([r.logits for r in cpu.serve_batch(qs)])
+    np.testing.assert_allclose(got, want, **PACK_LAYER_TOL[engine])
+
+
+@pytest.mark.cuda
+def test_cuda_refresh_rebuilds_bit_for_bit():
+    _need_card()
+    from repro_torch.serving import GraphDelta, GraphInferenceServer, Query
+
+    g, cfg, _, params, _, _ = _pack_case("sbm1k", "matrix")
+    server = GraphInferenceServer(params, cfg, g, num_clients=2, device="cuda",
+                                  refresh_threshold=1e9)
+    server.serve_batch([Query(0, 0), Query(1, 0)])
+    rep = server.apply_update(GraphDelta(features=g.features[:4],
+                                         edges=np.array([[g.num_nodes + i, i] for i in range(4)])))
+    assert rep["refreshed"] == [] and server.cache.stats()["patches"] == 2
+    server.refresh(0)
+    fresh = server.engine.precompute(server._client_gen(0), server._h, server._idx, server._mask)
+    assert all(torch.equal(a, b) for a, b in zip(server.pack_for(0), fresh)
+               if isinstance(a, torch.Tensor))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["matrix", "vector"])
+def test_cuda_pack_engine_training_matches_cpu_training(engine):
+    """The same pack (built on the CPU, moved over) trains on the card as on
+    the CPU: curves to 1e-6, params at the reference's gradient tolerance."""
+    _need_card()
+    from repro_torch.core import FedGAT
+    from repro_torch.federated.trainer import pack_generator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = make_cora_like("tiny", seed=0)
+    cfg = FederatedConfig(num_clients=4, rounds=2, local_steps=2,
+                          model=FedGATConfig(engine=engine))
+    pack = FedGAT(cfg.model, device="cpu").precommunicate(pack_generator(0, "cpu"), g)
+    before = (cheb_attn.launches, cheb_attn_backward.launches)
+    gpu = run_federated(g, cfg, device="cuda", pack=pack)
+    assert (cheb_attn.launches, cheb_attn_backward.launches) == before
+    cpu = run_federated(g, cfg, device="cpu", pack=pack)
+    np.testing.assert_allclose(gpu["val_curve"], cpu["val_curve"], atol=1e-6)
+    np.testing.assert_allclose(gpu["test_curve"], cpu["test_curve"], atol=1e-6)
+    for a, b in zip(gpu["params"].parameters(), cpu["params"].parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-3, atol=1e-4)

@@ -444,8 +444,8 @@ def test_port_bundle_loads_and_serves_in_both_packages(tiny, tmp_path):
 def test_serve_cli_quick_trains_and_serves_on_cpu(capsys):
     serve_cli.main(["--mode", "graph", "--fast", "--device", "cpu"])
     out = capsys.readouterr().out
-    assert "trained: method=fedgat engine=kernel rounds=2" in out
-    assert "serving: engine=kernel method=fedgat clients=2" in out
+    assert "trained: method=fedgat engine=matrix rounds=2" in out
+    assert "serving: engine=matrix method=fedgat clients=2" in out
     assert "served: 48 queries" in out and "post-update: served 4" in out
 
 
@@ -456,8 +456,6 @@ def test_serve_cli_quick_trains_and_serves_on_cpu(capsys):
     (dict(privacy=PrivacyConfig(clip=1.0)), NotImplementedError),
     (dict(privacy=PrivacyConfig(secure_agg=True)), NotImplementedError),
     (dict(privacy=PrivacyConfig(pack_noise_multiplier=0.5)), NotImplementedError),
-    (dict(model=FedGATConfig(engine="matrix")), NotImplementedError),
-    (dict(model=FedGATConfig(engine="vector")), NotImplementedError),
     (dict(backend="pmap"), ValueError),
     (dict(client_fraction=0.0), ValueError),
     (dict(aggregation_mode="async"), ValueError),

@@ -142,3 +142,12 @@ def test_apply_delta_bit_identical():
         apply_delta(g, GraphDelta(edges=np.array([[0, g.num_nodes]])))
     with pytest.raises(ValueError, match="dim"):
         apply_delta(g, GraphDelta(features=np.zeros((1, 3), np.float32)))
+
+
+@pytest.mark.parametrize("n,lo,hi", [(0, 0, 1), (1, 0, 1), (7, -3, 3), (10_000, 0, 50),
+                                     (100_000, -2**40, 2**40)])
+def test_sorted_unique_is_np_unique(n, lo, hi):
+    a = np.random.default_rng(n).integers(lo, hi, size=n, dtype=np.int64)
+    got, want = tgraph.sorted_unique(a), np.unique(a)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == want.dtype

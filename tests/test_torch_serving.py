@@ -134,14 +134,33 @@ def test_load_bundle_rejects_a_graph_of_other_dims(bundle):
         load_bundle(path, other, device="cpu")
 
 
-def test_server_refuses_unported_engines_and_methods(tiny, bundle):
+def test_port_serves_the_reference_default_matrix_bundle(tiny, bundle):
+    """The bundle says ``FedGATConfig()``: engine ``matrix``, served as it
+    stands by both servers (each builds its own packs)."""
+    g, jg = tiny
+    path, _ = bundle
+    server = GraphInferenceServer.from_checkpoint(path, g, device="cpu")
+    jserver = JServer.from_checkpoint(path, jg)
+    assert server.cfg.engine == jserver.cfg.engine == "matrix"
+    qs = [(c, n) for c in (0, 1) for n in range(g.num_nodes)]
+    got = server.serve_batch([Query(c, n) for c, n in qs])
+    want = jserver.serve_batch([JQuery(c, n) for c, n in qs])
+    np.testing.assert_allclose(np.stack([r.logits for r in got]),
+                               np.stack([r.logits for r in want]), rtol=1e-3, atol=1e-4)
+    assert [r.label for r in got] == [r.label for r in want]
+    for key in ("hits", "misses", "entries"):
+        assert server.stats()["cache"][key] == jserver.stats()["cache"][key], key
+    with pytest.raises(UnknownEngineError, match="registered engines"):
+        GraphInferenceServer.from_checkpoint(path, g, engine="sparse", device="cpu")
+
+
+def test_distgat_without_a_partition_raises(tiny, bundle):
     g, _ = tiny
     path, _ = bundle
-    with pytest.raises(UnknownEngineError, match="registered engines"):
-        GraphInferenceServer.from_checkpoint(path, g, device="cpu")   # bundle says "matrix"
-    with pytest.raises(ValueError, match="not servable"):
-        GraphInferenceServer.from_checkpoint(path, g, engine="kernel", method="distgat",
-                                             device="cpu")
+    ck = load_bundle(path, g, device="cpu")
+    with pytest.raises(ValueError, match="needs the training Partition"):
+        GraphInferenceServer(ck.params, ck.model, g, method="distgat", num_clients=2,
+                             engine="exact", device="cpu")
 
 
 def test_server_default_device_raises_without_cuda(tiny, bundle, monkeypatch):
@@ -194,7 +213,9 @@ def test_port_imports_neither_jax_nor_repro():
         "       'repro_torch.optim.adamw', 'repro_torch.privacy.config',\n"
         "       'repro_torch.core.gcn', 'repro_torch.checkpoint.ckpt',\n"
         "       'repro_torch.kernels.flash_attn', 'repro_torch.kernels.poly_attn',\n"
-        "       'repro_torch.kernels.wkv_chunk', 'repro_torch.kernels._launch']\n"
+        "       'repro_torch.kernels.wkv_chunk', 'repro_torch.kernels._launch',\n"
+        "       'repro_torch.core.fedgat_matrix', 'repro_torch.core.fedgat_vector',\n"
+        "       'repro_torch.analysis.error_bounds', 'repro_torch._rng']\n"
         "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
     )
