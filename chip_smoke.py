@@ -84,10 +84,41 @@ Phases (any failure exits non-zero, and no result line is printed):
    against the same run on the CPU (curves to 1e-6, params rtol 1e-3 /
    atol 1e-4).
 
+7. Cohort streaming and the privacy stack, at ``FedGATConfig()`` widths.
+   Counts zeroed just before and read just after each counted run (7a-7d).
+   7a: ``sbm_100k``, fedgat through the kernel engine, K 64, beta 1.0,
+   ``client_fraction`` 0.25 (16 per round), ``max_concurrent_clients`` 4
+   (4 cohorts), 2 rounds of 3 local steps, fedavg: exactly 98 forward and
+   96 backward ``cheb_attn`` launches; the same config through the
+   Trainer's loop (``max_concurrent_clients=None``): curves to 1e-6,
+   params to 1e-5 on every leaf but the output layer's ``a1`` (rounding
+   noise that Adam carries from round 2 on; that leaf to rtol 1e-3 / atol
+   1e-4); s per round and peak memory of both. 7b: buffered, staleness
+   power 0.5, churn drop 0.2 and join 0.02: launches from ``plan_rounds``'
+   live clients, the churn report equal to the plans and the counters.
+   7c: DP (clip 1, sigma 0.5) with pairwise masks: a second run identical,
+   epsilon equal to ``compute_epsilon``, one round with masks within 1e-5
+   of one without. 7d: the protocol, buffered, drop churn 0.25, K 16:
+   recovered seeds, curves equal (1e-6) and params (rtol 1e-3 / atol
+   1e-4) to the mask-free run of the same churn, one round alone within
+   1e-5 of its mask-free twin, the protocol's host seconds. 7e: pack noise sigma
+   0.5 on a matrix pack at ``sbm_10k`` and a vector pack at ``sbm_100k``:
+   each noised field's std within 1% of sigma times its sensitivity; a
+   training round finite with ``pack_epsilon`` equal to the accountant's
+   (matrix at sigma 0.05: at 0.5 Matrix FedGAT diverges in both packages);
+   0 launches. 7f: distgat (exact) at ``sbm_100k``, K 256, 16 per round,
+   lanes 4, cohorts against the loop (curves to 1e-6), peak memory and
+   staged mask bytes of both; 0 launches. 7g: ``tiny``, 7a's config at K 4
+   (fraction 1.0, lanes 2) with DP noise on the card against the CPU
+   (curves to 1e-6, params rtol 1e-3 / atol 1e-4 but the output layer's
+   ``a1``), and
+   ``run_membership_inference``'s advantage equal on both.
+
 The second-to-last line is a JSON object describing each kernel
-(``launches``: cheb_attn's over the serving, training and kernel-API
-phases, split in ``launches_by_path``, the backward's over the training
-phase, the sequence kernels' over the kernel-API phase; ``max_abs_err``:
+(``launches``: cheb_attn's over the serving, training, kernel-API and
+cohort phases, split in ``launches_by_path``, the backward's over the
+training and cohort phases, the sequence kernels' over the kernel-API
+phase; ``max_abs_err``:
 kernel against plain version); the last line is ``{"ok": true,
 "device": {...}}``. Imports nothing of JAX or of the JAX package.
 """
@@ -1071,6 +1102,325 @@ def pack_engines_phase(dev, g1m, params1m, want_direct1m, big="sbm_100k", mid="s
     check_no_kernel_launched(f"phase 6d ({small}, matrix training)")
 
 
+def params_max_diff(a, b) -> float:
+    return max(float((p.detach().cpu() - q.detach().cpu()).abs().max())
+               for p, q in zip(a.parameters(), b.parameters()))
+
+
+def output_a1_apart(a, b):
+    """Two runs' final params as host pairs: (every leaf but the output
+    layer's ``a1``, that leaf). The output layer's ``a1`` reaches the logits
+    only through the leaky ReLU's kink, so its gradient is mostly float32
+    rounding noise that Adam scales into steps: from round 2 on it carries
+    any earlier rounding difference (tests/test_torch_federated.py's
+    docstring; ROADMAP Queue 3)."""
+    out_a1 = f"{len(a) - 1}.a1"
+    rest, a1 = [], None
+    for (name, p), q in zip(a.named_parameters(), b.parameters()):
+        pair = (p.detach().cpu(), q.detach().cpu())
+        if name == out_a1:
+            a1 = pair
+        else:
+            rest.append(pair)
+    return rest, a1
+
+
+def max_diff(pairs) -> float:
+    return max(float((p - q).abs().max()) for p, q in pairs)
+
+
+def all_close(pairs) -> bool:
+    return all(torch.allclose(p, q, rtol=GRAD_RTOL, atol=GRAD_ATOL) for p, q in pairs)
+
+
+def params_finite(res) -> bool:
+    return all(bool(torch.isfinite(p).all()) for p in res["params"].parameters())
+
+
+def counted_run(label, g, cfg, dev, want_fwd, want_bwd):
+    """``run_federated`` on the card with the kernel counts zeroed just
+    before and read just after; fails unless they equal the wants.
+    Returns (result, forward launches, backward launches, peak GiB)."""
+    from repro_torch.federated import run_federated
+    from repro_torch.kernels.cheb_attn import cheb_attn, cheb_attn_backward
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    res = run_federated(g, cfg, device=dev)
+    torch.cuda.synchronize()
+    fwd, bwd = cheb_attn.launches, cheb_attn_backward.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label}: {res['seconds'] / max(cfg.rounds, 1):.3f} s per round (trainer clock), "
+          f"peak {peak:.2f} GiB; launches forward {fwd} (want {want_fwd}), backward {bwd} "
+          f"(want {want_bwd}); cohort {res['cohort']}; val {res['val_curve']}", flush=True)
+    if (fwd, bwd) != (want_fwd, want_bwd):
+        fail(f"{label}: the kernel launch counts differ from the cohort plans'")
+    if not params_finite(res):
+        fail(f"{label}: trained params are not finite")
+    return res, fwd, bwd, peak
+
+
+def cohort_privacy_phase(dev, big="sbm_100k", mid="sbm_10k", small="tiny"):
+    """Phase 7: cohort streaming and the privacy stack (see the module
+    docstring). Returns the ``cheb_attn`` forward and backward launches of
+    its counted runs (7a-7d)."""
+    from dataclasses import replace
+
+    from repro_torch import telemetry
+    from repro_torch.core import FedGAT, FedGATConfig
+    from repro_torch.federated import FederatedConfig, run_federated
+    from repro_torch.federated import trainer as fed_trainer
+    from repro_torch.federated.cohort import cohort_lanes, plan_rounds
+    from repro_torch.graphs import make_cora_like, make_sbm
+    from repro_torch.privacy import (
+        PrivacyConfig,
+        compute_epsilon,
+        noisy_pack,
+        pack_noise_key,
+        pack_release_steps,
+        pack_sensitivities,
+    )
+    from repro_torch.privacy.attacks import run_membership_inference
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    g = make_sbm(big, seed=SEED)
+    print(f"phase 7 {big}: N={g.num_nodes} d={g.feature_dim} B={g.max_degree} "
+          f"C={g.num_classes}; built in {time.perf_counter() - t0:.1f}s; {smi}", flush=True)
+    cohort_fwd = cohort_bwd = 0
+
+    def plan_launches(cfg):
+        _, chosen = fed_trainer.selection_schedule(cfg)
+        plans = plan_rounds(cfg, chosen, cohort_lanes(cfg))
+        live = [int((p.weights > 0).sum()) for p in plans]
+        steps = cfg.local_steps
+        return plans, live, sum(n * steps + 1 for n in live), sum(n * steps for n in live)
+
+    # -- 7a: sync cohorts against the Trainer's loop ------------------------
+    cfg = FederatedConfig(method="fedgat", num_clients=64, beta=1.0, rounds=2, local_steps=3,
+                          client_fraction=0.25, aggregator="fedavg", seed=SEED,
+                          model=FedGATConfig(engine="kernel"), max_concurrent_clients=4)
+    n_sel = fed_trainer.num_selected(cfg)
+    want_fwd = cfg.rounds * (n_sel * cfg.local_steps + 1)
+    want_bwd = cfg.rounds * n_sel * cfg.local_steps
+    res, fwd, bwd, peak = counted_run(
+        f"7a {big} sync cohorts (K 64, {n_sel} per round, lanes 4)", g, cfg, dev,
+        want_fwd, want_bwd)
+    cohort_fwd, cohort_bwd = cohort_fwd + fwd, cohort_bwd + bwd
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loop = run_federated(g, replace(cfg, max_concurrent_clients=None), device=dev)
+    torch.cuda.synchronize()
+    loop_peak = torch.cuda.max_memory_allocated() / 2**30
+    curves = (np.allclose(res["val_curve"], loop["val_curve"], atol=1e-6)
+              and np.allclose(res["test_curve"], loop["test_curve"], atol=1e-6))
+    diff = params_max_diff(res["params"], loop["params"])
+    rest, a1 = output_a1_apart(res["params"], loop["params"])
+    print(f"7a against the loop (max_concurrent_clients=None): {loop['seconds'] / cfg.rounds:.3f}"
+          f" s per round, peak {loop_peak:.2f} GiB; curves equal (atol 1e-6) {curves}; final "
+          f"params max abs diff {diff:.3e}: every leaf but the output layer's a1 "
+          f"{max_diff(rest):.3e} (limit 1e-5), that a1 {max_diff([a1]):.3e} "
+          f"(allclose(rtol={GRAD_RTOL},atol={GRAD_ATOL}) {all_close([a1])})", flush=True)
+    if not (curves and max_diff(rest) <= 1e-5 and all_close([a1])):
+        fail("7a: sync cohorts disagree with the Trainer's loop")
+    del res, loop
+
+    # -- 7b: buffered with churn --------------------------------------------
+    bcfg = replace(cfg, aggregation_mode="buffered", staleness_power=0.5,
+                   churn_drop_rate=0.2, churn_join_rate=0.02)
+    plans, live, want_fwd, want_bwd = plan_launches(bcfg)
+    joined0 = telemetry.counter("federated.cohort.joined").value
+    dropped0 = telemetry.counter("federated.cohort.dropped").value
+    res, fwd, bwd, _ = counted_run(f"7b {big} buffered, churn (live per round {live})", g,
+                                   bcfg, dev, want_fwd, want_bwd)
+    cohort_fwd, cohort_bwd = cohort_fwd + fwd, cohort_bwd + bwd
+    joined = (sum(p.joined for p in plans),
+              telemetry.counter("federated.cohort.joined").value - joined0)
+    dropped = (sum(p.dropped for p in plans),
+               telemetry.counter("federated.cohort.dropped").value - dropped0)
+    print(f"7b churn: joined {res['cohort']['joined']} (plan {joined[0]}, counter {joined[1]}), "
+          f"dropped {res['cohort']['dropped']} (plan {dropped[0]}, counter {dropped[1]})",
+          flush=True)
+    if (res["cohort"]["joined"] != joined[0] or joined[0] != joined[1]
+            or res["cohort"]["dropped"] != dropped[0] or dropped[0] != dropped[1]):
+        fail("7b: the churn report differs from the plans or the counters")
+    del res
+
+    # -- 7c: DP with pairwise secure aggregation ----------------------------
+    priv = PrivacyConfig(clip=1.0, noise_multiplier=0.5, secure_agg=True,
+                         secure_agg_mode="pairwise")
+    ccfg = replace(cfg, privacy=priv)
+    res, fwd, bwd, _ = counted_run(f"7c {big} DP (clip 1, sigma 0.5) + pairwise masks", g, ccfg,
+                                   dev, cfg.rounds * (n_sel * cfg.local_steps + 1),
+                                   cfg.rounds * n_sel * cfg.local_steps)
+    cohort_fwd, cohort_bwd = cohort_fwd + fwd, cohort_bwd + bwd
+    again = run_federated(g, ccfg, device=dev)
+    same = (res["val_curve"] == again["val_curve"] and res["test_curve"] == again["test_curve"])
+    eps = compute_epsilon(priv.noise_multiplier, cfg.rounds, n_sel / cfg.num_clients,
+                          priv.delta)
+    one = replace(ccfg, rounds=1)
+    on = run_federated(g, one, device=dev)
+    off = run_federated(g, replace(one, privacy=replace(priv, secure_agg=False)), device=dev)
+    mask_diff = params_max_diff(on["params"], off["params"])
+    print(f"7c: a second run's curves identical {same}; epsilon {res['epsilon']!r} "
+          f"(compute_epsilon {eps!r}); one round with masks against without: params max abs "
+          f"diff {mask_diff:.3e} (limit 1e-5)", flush=True)
+    if not same or res["epsilon"] != eps or not np.isfinite(eps) or mask_diff > 1e-5:
+        fail("7c: DP with pairwise masks is not deterministic, exact or accounted")
+    del res, again, on, off
+
+    # -- 7d: the secure-aggregation protocol with dropouts ------------------
+    dcfg = replace(cfg, num_clients=16, client_fraction=1.0, aggregation_mode="buffered",
+                   churn_drop_rate=0.25, privacy=PrivacyConfig(secure_agg=True))
+    plans, live, want_fwd, want_bwd = plan_launches(dcfg)
+    recovered0 = telemetry.counter("privacy.secure_agg.recovered_seeds").value
+    failures0 = telemetry.counter("privacy.secure_agg.recovery_failures").value
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        res, fwd, bwd, _ = counted_run(
+            f"7d {big} protocol, buffered, drop churn 0.25 (K 16, lanes 4, live {live})",
+            g, dcfg, dev, want_fwd, want_bwd)
+        host = {}
+        for r in telemetry.records():
+            if r.name in ("secure_agg_setup", "secure_agg_mask", "aggregate"):
+                host[r.name] = host.get(r.name, 0.0) + r.dur_ns / 1e9
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+    cohort_fwd, cohort_bwd = cohort_fwd + fwd, cohort_bwd + bwd
+    recovered = telemetry.counter("privacy.secure_agg.recovered_seeds").value - recovered0
+    failures = telemetry.counter("privacy.secure_agg.recovery_failures").value - failures0
+    free = run_federated(g, replace(dcfg, privacy=PrivacyConfig()), device=dev)
+    curves = (np.allclose(res["val_curve"], free["val_curve"], atol=1e-6)
+              and np.allclose(res["test_curve"], free["test_curve"], atol=1e-6))
+    rest, a1 = output_a1_apart(res["params"], free["params"])
+    diff, pclose = max_diff(rest + [a1]), all_close(rest + [a1])
+    # The reference's exactness test is one round (tests/test_secure_protocol.py:
+    # 262-272): from round 2 on, Adam carries the quantization's rounding.
+    one = replace(dcfg, rounds=1)
+    one_diff = params_max_diff(run_federated(g, one, device=dev)["params"], run_federated(
+        g, replace(one, privacy=PrivacyConfig()), device=dev)["params"])
+    n_dropped = sum(p.dropped for p in plans)
+    print(f"7d: dropped {n_dropped} in the plans ({plans[0].dropped} in round 1), recovered "
+          f"seeds {recovered}, rounds below the Shamir threshold re-run among the survivors "
+          f"{failures}; against the mask-free run of the same churn: curves equal (atol 1e-6) "
+          f"{curves}, params max abs diff {diff:.3e} (allclose(rtol={GRAD_RTOL},atol={GRAD_ATOL})"
+          f" {pclose}), after round 1 alone {one_diff:.3e} (limit 1e-5); protocol host seconds "
+          f"{sum(host.values()):.3f} (" + ", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(host.items())) + ")", flush=True)
+    if (n_dropped and recovered <= 0) or not (curves and pclose and one_diff <= 1e-5):
+        fail("7d: the protocol did not recover its dropouts or is not exact")
+    del res, free
+    del g
+    torch.cuda.empty_cache()
+
+    # -- 7e: pack noise, matrix at sbm_10k and vector at sbm_100k -----------
+    sigma = 0.5
+    for engine, name in (("matrix", mid), ("vector", big)):
+        gp = make_sbm(name, seed=SEED)
+        mcfg = FedGATConfig(engine=engine)
+        zero_kernel_counts()
+        clean = FedGAT(mcfg, device=dev).precommunicate(fed_trainer.pack_generator(SEED, dev), gp)
+        sens = pack_sensitivities(clean, gp.features)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        noised = noisy_pack(pack_noise_key(SEED), clean, gp.features, sigma)
+        torch.cuda.synchronize()
+        noise_s = time.perf_counter() - t0
+        rows = []
+        for field, s in sens.items():
+            d = getattr(noised, field) - getattr(clean, field)
+            std = float(d.std())
+            rows.append((field, d.numel(), std, sigma * s))
+            del d
+        print(f"7e {engine} {name}: noised in {noise_s:.3f} s; per field (elements, std, "
+              f"sigma*sensitivity): " + "; ".join(
+                  f"{f} {n} {s:.6f} {w:.6f}" for f, n, s, w in rows), flush=True)
+        if any(abs(s - w) > 0.01 * w for _, _, s, w in rows):
+            fail(f"7e {engine}: a noised field's std is not within 1% of sigma*sensitivity")
+        if engine == "vector" and not torch.equal(noised.mask4, clean.mask4):
+            fail("7e vector: the slot indicator mask4 was noised")
+        del clean, noised
+        torch.cuda.empty_cache()
+        # The training round. Matrix FedGAT diverges to non-finite params at
+        # sigma 0.5 in both packages (the noised pack drives layer-1 scores
+        # out of the series' domain), so its round runs at the reference's
+        # own trainer-test multiplier, 0.05 (tests/test_privacy.py:403).
+        train_sigma = 0.05 if engine == "matrix" else sigma
+        tcfg = FederatedConfig(method="fedgat", num_clients=4, beta=1.0, rounds=1, local_steps=3,
+                               seed=SEED, model=mcfg,
+                               privacy=PrivacyConfig(pack_noise_multiplier=train_sigma))
+        torch.cuda.reset_peak_memory_stats()
+        res = run_federated(gp, tcfg, device=dev)
+        torch.cuda.synchronize()
+        want_eps = compute_epsilon(train_sigma, pack_release_steps(), 1.0, tcfg.privacy.delta)
+        print(f"7e {engine} {name} training round at pack sigma {train_sigma}: "
+              f"{res['seconds']:.3f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB,"
+              f" params finite {params_finite(res)}, pack_epsilon {res['privacy']['pack_epsilon']!r}"
+              f" (accountant {want_eps!r}); val {res['val_curve']}", flush=True)
+        if not params_finite(res) or res["privacy"]["pack_epsilon"] != want_eps:
+            fail(f"7e {engine}: the noised-pack round is not finite or not accounted")
+        check_no_kernel_launched(f"7e ({engine}, {name})")
+        del res, gp
+        torch.cuda.empty_cache()
+
+    # -- 7f: distgat staging, cohorts against the loop -----------------------
+    g = make_sbm(big, seed=SEED)
+    fcfg = FederatedConfig(method="distgat", num_clients=256, beta=1.0, rounds=2, local_steps=3,
+                           client_fraction=1 / 16, seed=SEED, max_concurrent_clients=4,
+                           model=FedGATConfig(engine="exact"))
+    lanes = cohort_lanes(fcfg)
+    zero_kernel_counts()
+    peaks = {}
+    runs = {}
+    for label, c in (("cohort", fcfg), ("loop", replace(fcfg, max_concurrent_clients=None))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs[label] = run_federated(g, c, device=dev)
+        torch.cuda.synchronize()
+        peaks[label] = torch.cuda.max_memory_allocated() / 2**30
+    n, b, K = g.num_nodes, g.max_degree, fcfg.num_clients
+    curves = (np.allclose(runs["cohort"]["val_curve"], runs["loop"]["val_curve"], atol=1e-6)
+              and np.allclose(runs["cohort"]["test_curve"], runs["loop"]["test_curve"], atol=1e-6))
+    print(f"7f distgat {big} (K {K}, {fed_trainer.num_selected(fcfg)} per round, lanes {lanes}): "
+          f"cohort {runs['cohort']['seconds'] / fcfg.rounds:.3f} s per round, peak "
+          f"{peaks['cohort']:.3f} GiB, staging {lanes * n * b / 1e6:.1f} MB of masks per cohort; "
+          f"loop {runs['loop']['seconds'] / fcfg.rounds:.3f} s per round, peak "
+          f"{peaks['loop']:.3f} GiB, staging K*N*B = {K * n * b / 1e6:.1f} MB; curves equal "
+          f"(atol 1e-6) {curves}; {smi}", flush=True)
+    if not curves:
+        fail("7f: distgat cohorts disagree with the loop")
+    check_no_kernel_launched(f"7f (distgat exact, {big})")
+    del runs, g
+    torch.cuda.empty_cache()
+
+    # -- 7g: the card against the CPU on tiny -------------------------------
+    tiny = make_cora_like(small, seed=SEED)
+    gcfg = replace(cfg, num_clients=4, client_fraction=1.0, max_concurrent_clients=2,
+                   privacy=PrivacyConfig(clip=1.0, noise_multiplier=0.5))
+    on_gpu = run_federated(tiny, gcfg, device=dev)
+    on_cpu = run_federated(tiny, gcfg, device="cpu")
+    curves = (np.allclose(on_gpu["val_curve"], on_cpu["val_curve"], atol=1e-6)
+              and np.allclose(on_gpu["test_curve"], on_cpu["test_curve"], atol=1e-6))
+    # The output layer's a1 is rounding noise on tiny (output_a1_apart;
+    # tests/test_torch_federated.py leaves it out for the same reason).
+    rest, a1 = output_a1_apart(on_gpu["params"], on_cpu["params"])
+    pclose = all_close(rest)
+    mia_gpu = run_membership_inference(tiny, gcfg, device=dev)
+    mia_cpu = run_membership_inference(tiny, gcfg, device="cpu")
+    print(f"7g {small} DP cohorts (K 4, lanes 2): card vs CPU curves equal (atol 1e-6) {curves}, "
+          f"params max abs diff {params_max_diff(on_gpu['params'], on_cpu['params']):.3e}, "
+          f"every leaf but the output layer's a1 allclose(rtol={GRAD_RTOL},atol={GRAD_ATOL}) "
+          f"{pclose} (that a1 {max_diff([a1]):.3e}, not held); MIA advantage card "
+          f"{mia_gpu['advantage']!r} CPU {mia_cpu['advantage']!r} (auc {mia_gpu['auc']!r} / "
+          f"{mia_cpu['auc']!r})", flush=True)
+    if not (curves and pclose) or mia_gpu["advantage"] != mia_cpu["advantage"]:
+        fail(f"7g: {small} DP cohort training or the MIA audit differs between card and CPU")
+    return cohort_fwd, cohort_bwd
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -1390,6 +1740,13 @@ def main() -> None:
     t0 = time.perf_counter()
     pack_engines_phase(dev, g, params, want_direct)
     print(f"pack engine phase: {time.perf_counter() - t0:.1f}s")
+
+    # -- phase 7: cohort streaming and the privacy stack --------------------
+    del g, params, h, nbr_idx, nbr_mask, server, batcher
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cohort_fwd, cohort_bwd = cohort_privacy_phase(dev)
+    print(f"cohort and privacy phase: {time.perf_counter() - t0:.1f}s")
     print(f"total {time.perf_counter() - t_start:.1f}s")
 
     print(f"gpu: {nvidia_smi()}")
@@ -1398,9 +1755,9 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cheb_attn.cu",
         "replaces": "src/repro/kernels/cheb_attn.py:146",
-        "launches": launches + train_fwd + bucket_launches,
+        "launches": launches + train_fwd + bucket_launches + cohort_fwd,
         "launches_by_path": {"serve": launches, "train": train_fwd,
-                             "kernel_api": bucket_launches},
+                             "kernel_api": bucket_launches, "cohort": cohort_fwd},
         "max_abs_err": max(errs + [bucket_kernel_err]),
         "bucketed_vs_flat_err": bucket_err,
         "load": fwd_load,
@@ -1416,7 +1773,8 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cheb_attn.cu",
         "replaces": "src/repro/kernels/cheb_attn.py:189",
-        "launches": train_bwd,
+        "launches": train_bwd + cohort_bwd,
+        "launches_by_path": {"train": train_bwd, "cohort": cohort_bwd},
         "max_abs_err": max(bwd_errs),
         "ms": ms_bwd,
         "plain_ms": ms_bwd_plain,

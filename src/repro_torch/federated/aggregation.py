@@ -2,16 +2,19 @@
 default; FedProx and server-side FedAdam as the paper allows).
 
 The port of ``repro/federated/aggregation.py``: every leaf of a stacked
-tree has a leading client axis. The ``RunningAggregate`` family and
-``staleness_weight`` wait for the cohort slice.
+tree has a leading client axis. Cohort streaming (federated/cohort.py)
+never stacks a whole round: it carries a :class:`RunningAggregate`, the
+weighted sum of the client params plus the weight total, so the finished
+running mean equals :func:`fedavg` of the stacked params up to float
+re-association.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from repro_torch._tree import tree_map
+from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.optim.adamw import AdamState
 
 Tree = Any
@@ -26,6 +29,59 @@ def fedavg(stacked_params: Tree, weights: Optional[torch.Tensor] = None) -> Tree
     return tree_map(
         lambda p: torch.tensordot(w.to(p.dtype), p, dims=([0], [0])), stacked_params
     )
+
+
+class RunningAggregate(NamedTuple):
+    """Streaming weighted-mean state: Σ w_i · p_i and Σ w_i."""
+
+    sum: Tree               # Σ w_i · p_i, same structure as one client's params
+    weight: torch.Tensor    # Σ w_i, float32 scalar
+
+
+@torch.no_grad()
+def running_init(template: Tree) -> RunningAggregate:
+    """Zero aggregate shaped like one client's params."""
+    device = tree_leaves(template)[0].device
+    return RunningAggregate(
+        sum=tree_map(torch.zeros_like, template),
+        weight=torch.zeros((), dtype=torch.float32, device=device),
+    )
+
+
+@torch.no_grad()
+def running_update(
+    state: RunningAggregate,
+    stacked_params: Tree,
+    weights: torch.Tensor,
+    scale: Union[torch.Tensor, float] = 1.0,
+) -> RunningAggregate:
+    """Fold one cohort (leading axis C) in: sum += scale·Σ w_c p_c.
+
+    ``weights`` is (C,): zero entries contribute exactly nothing. ``scale``
+    is the cohort's staleness weight λ (1 in sync mode); it multiplies the
+    cohort's params and its weight mass, so the finished mean is
+    Σ λ w p / Σ λ w.
+    """
+    w = (torch.as_tensor(weights, dtype=torch.float32, device=state.weight.device)
+         * torch.as_tensor(scale, dtype=torch.float32, device=state.weight.device))
+    return RunningAggregate(
+        sum=tree_map(lambda acc, p: acc + torch.tensordot(w.to(p.dtype), p, dims=([0], [0])),
+                     state.sum, stacked_params),
+        weight=state.weight + torch.sum(w),
+    )
+
+
+@torch.no_grad()
+def running_mean(state: RunningAggregate) -> Tree:
+    """The finished aggregate: Σ w p / Σ w (== fedavg of the stream)."""
+    return tree_map(lambda s: s / state.weight.to(s.dtype), state.sum)
+
+
+def staleness_weight(staleness, power: float) -> torch.Tensor:
+    """Polynomial staleness discount λ(s) = (1 + s)^(-power) (FedAsync /
+    FedBuff style); ``power=0`` is the identity."""
+    s = torch.as_tensor(staleness, dtype=torch.float32)
+    return (1.0 + s) ** (-float(power))
 
 
 @torch.no_grad()

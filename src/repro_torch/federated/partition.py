@@ -1,7 +1,7 @@
 """Graph partitioning across federated clients — CSR-based.
 
 The port of ``repro/federated/partition.py`` (numpy only, bit-identical on
-the same seed). ``stage_cohort_masks`` waits for the cohort slice.
+the same seed).
 
 Follows the paper's experimental setup: nodes are assigned to K clients with
 a Dirichlet(beta) label distribution (Hsu, Qi & Brown 2019) — beta=1 is the
@@ -120,6 +120,43 @@ def client_train_masks(
     """(K, N) training-node masks per client (optionally a client subset)."""
     ids = range(part.num_clients) if clients is None else list(clients)
     return np.stack([(part.owner == k) & g.train_mask for k in ids])
+
+
+def stage_cohort_masks(
+    g: Graph,
+    part: Partition,
+    client_ids: Sequence[int],
+    size: int,
+    *,
+    neighbor: bool = True,
+) -> tuple:
+    """Stack ONLY the active cohort's per-client masks — the cohort
+    scheduler's staging primitive. Returns ``(nb, tr)``:
+
+      nb — (size, N, B) per-client edge-visibility masks (``None`` when
+           ``neighbor=False``: methods whose clients all see the full
+           graph pass one shared mask instead of a stacked copy);
+      tr — (size, N) per-client training-label masks.
+
+    ``client_ids`` are the cohort's live clients (<= ``size``); the
+    remaining padding lanes repeat the first client's rows. Peak staging
+    memory is O(size · N · B) regardless of K.
+    """
+    ids = list(client_ids)
+    if not 1 <= len(ids) <= size:
+        raise ValueError(
+            f"cohort has {len(ids)} clients but size {size} lanes"
+        )
+    pad = size - len(ids)
+    tr = client_train_masks(g, part, clients=ids)
+    if pad:
+        tr = np.concatenate([tr, np.repeat(tr[:1], pad, axis=0)])
+    nb = None
+    if neighbor:
+        nb = client_neighbor_masks(g, part, clients=ids)
+        if pad:
+            nb = np.concatenate([nb, np.repeat(nb[:1], pad, axis=0)])
+    return nb, tr
 
 
 def l_hop_sizes(g: Graph, part: Partition, L: int) -> np.ndarray:

@@ -30,17 +30,21 @@ splitmix64 derivation (:func:`pack_generator`), a stream separate from the
 parameter initialisation's. ``pack=`` feeds a pack built elsewhere instead
 (the reference's, or one built on another device).
 
-Not ported yet, and refused by :class:`Trainer` with ``NotImplementedError``:
-the ``shard_map`` backend, cohort streaming (``max_concurrent_clients``,
-buffered aggregation, churn) and every privacy mechanism, pack noise
-included.
+Cohort streaming (``max_concurrent_clients``, buffered aggregation,
+churn, and the secure-aggregation ``protocol``) runs through
+:func:`repro_torch.federated.cohort.run_cohort_rounds`. The privacy stack
+is wired as in the reference: DP clipping and noise at the end of
+:func:`make_local_update` (noise drawn on a CPU generator, so the card and
+the CPU add the same noise), pairwise masks in the round step, pack noise
+in :func:`build_forward`. Not ported yet, and refused by :class:`Trainer`
+with ``NotImplementedError``: the ``shard_map`` backend.
 """
 from __future__ import annotations
 
 import math
 import time
 from dataclasses import dataclass, field, replace
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,11 +54,13 @@ from repro_torch import telemetry
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch._rng import fold_in, generator
 from repro_torch._tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.core.engine import get_engine
 from repro_torch.core.fedgat_model import FedGAT, FedGATConfig, graph_tensors, params_from_numpy
 from repro_torch.core.gat import masked_accuracy, masked_cross_entropy
 from repro_torch.core.gcn import gcn_forward_nbr, init_gcn_params, normalized_nbr_coeffs
 from repro_torch.federated import comm as comm_mod
 from repro_torch.federated.aggregation import fedadam_server, fedavg, fedprox_grad
+from repro_torch.federated.cohort import AGGREGATION_MODES, cohort_active, run_cohort_rounds
 from repro_torch.federated.partition import (
     Partition,
     client_neighbor_masks,
@@ -63,10 +69,21 @@ from repro_torch.federated.partition import (
 )
 from repro_torch.graphs.graph import Graph
 from repro_torch.optim.adamw import AdamState, adam_init, adam_update
-from repro_torch.privacy import PrivacyConfig, node_influence_bound, privacy_report
+from repro_torch.privacy import (
+    PrivacyConfig,
+    add_client_mask,
+    client_round_key,
+    compute_epsilon,
+    make_dp_transform,
+    mask_base_key,
+    node_influence_bound,
+    noise_base_key,
+    noisy_pack,
+    pack_noise_key,
+    privacy_report,
+)
 
 BACKENDS = ("vmap", "shard_map")
-AGGREGATION_MODES = ("sync", "buffered")    # repro/federated/cohort.py
 Tree = Any
 
 
@@ -88,17 +105,25 @@ class FederatedConfig:
     model: FedGATConfig = field(default_factory=FedGATConfig)
     gcn_hidden: int = 16
     privacy: PrivacyConfig = field(default_factory=PrivacyConfig)
-    # Cohort streaming (not ported): kept so configs carry over unchanged.
-    max_concurrent_clients: Optional[int] = None
-    aggregation_mode: str = "sync"    # sync | buffered
-    staleness_power: float = 0.5
-    churn_drop_rate: float = 0.0
-    churn_join_rate: float = 0.0
+    # Cohort streaming (federated/cohort.py): decouple clients from lanes.
+    max_concurrent_clients: Optional[int] = None   # cohort size cap (None = one lane per client)
+    aggregation_mode: str = "sync"    # sync | buffered (staleness-weighted)
+    staleness_power: float = 0.5      # buffered: λ(s) = (1 + s)^(-power)
+    churn_drop_rate: float = 0.0      # buffered: P(selected client drops mid-round)
+    churn_join_rate: float = 0.0      # buffered: P(unselected client joins mid-round)
 
 
 # ---------------------------------------------------------------------------
 # Building blocks
 # ---------------------------------------------------------------------------
+
+def pack_released(cfg: FederatedConfig) -> bool:
+    """True when this run pre-communicates a pack (the payload pack noise
+    noises): a fedgat/distgat method whose effective engine needs one."""
+    if cfg.method not in ("fedgat", "distgat"):
+        return False
+    return get_engine(method_model_config(cfg).engine).needs_pack
+
 
 def method_model_config(cfg: FederatedConfig) -> FedGATConfig:
     """The model config a federated method actually trains: DistGAT is the
@@ -131,13 +156,26 @@ def build_forward(
     The graph's arrays go to ``device`` here, once for the run. For
     fedgat/distgat the one-shot pack is communicated here: ``pack`` when
     given (moved to ``device``), else precomputed under
-    :func:`pack_generator`."""
+    :func:`pack_generator`. With ``privacy.pack_noise_multiplier > 0`` the
+    stored pack is replaced by its noised release (privacy/pack_dp.py),
+    drawn on the pack's device, and the clean pack is dropped."""
     if cfg.method in ("fedgat", "distgat"):
         model = FedGAT(method_model_config(cfg), device=device)
         if pack is not None:
             model.install_pack(pack, g)
         else:
             model.precommunicate(pack_generator(cfg.seed, model.device), g)
+        if cfg.privacy.pack_noise_multiplier > 0 and model.pack is not None:
+            # Node-level accounting calibrates to the node-influence bound
+            # of the degree-capped neighbour lists; edge-level (the
+            # default) to a single neighbour term.
+            node = cfg.privacy.dp_granularity == "node"
+            model.pack = noisy_pack(
+                pack_noise_key(cfg.seed), model.pack, g.features,
+                cfg.privacy.pack_noise_multiplier,
+                granularity="node" if node else "edge",
+                node_influence=node_influence_bound(g) if node else 1,
+            )
 
         def init_fn(gen):
             return param_tree(model.init(gen, g))
@@ -194,9 +232,16 @@ def grad_of(loss_fn: Callable, params: Tree, *args) -> Tree:
 
 def make_local_update(loss_fn: Callable, cfg: FederatedConfig) -> Callable:
     """One client's local phase: ``cfg.local_steps`` Adam steps from the
-    global params, with the FedProx pull under ``aggregator="fedprox"``."""
+    global params, with the FedProx pull under ``aggregator="fedprox"``.
 
-    def local_update(gparams, opt_state, nb_mask, tr_mask):
+    When ``cfg.privacy`` enables DP, the client's update delta is clipped
+    and noised (privacy/dp.py) under the per-(round, client) ``noise_seed``
+    before it leaves the local phase. With DP off the seed is unused and
+    the computation is the privacy-free one, bit for bit."""
+    priv = cfg.privacy
+    dp = make_dp_transform(priv, num_selected(cfg)) if priv.dp_enabled else None
+
+    def local_update(gparams, opt_state, nb_mask, tr_mask, noise_seed):
         params = gparams
         for _ in range(cfg.local_steps):
             grads = grad_of(loss_fn, params, nb_mask, tr_mask)
@@ -205,6 +250,8 @@ def make_local_update(loss_fn: Callable, cfg: FederatedConfig) -> Callable:
             params, opt_state = adam_update(
                 grads, opt_state, params, cfg.lr, weight_decay=cfg.weight_decay
             )
+        if dp is not None:
+            params = dp(noise_seed, gparams, params)
         return params, opt_state
 
     return local_update
@@ -262,30 +309,39 @@ def build_result(
     part: Partition,
     g: Graph,
     seconds: float,
+    cohort: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
-    """The reference's result schema. ``mesh``, ``cohort`` and ``manifest``
-    are ``None`` until the port has a mesh, cohorts and run manifests."""
+    """The reference's result schema. ``cohort`` is the cohort driver's
+    report when the run was cohort-streamed, else ``None``; ``mesh`` and
+    ``manifest`` are ``None`` until the port has a mesh and run manifests."""
     best_val, best_test = best_metrics(val_curve, test_curve)
     node_influence = (
         node_influence_bound(g) if cfg.privacy.dp_granularity == "node" else None
     )
     privacy = privacy_report(
         cfg.privacy, rounds=cfg.rounds, num_clients=cfg.num_clients,
-        num_selected=num_selected(cfg), node_influence=node_influence,
+        num_selected=num_selected(cfg), pack_released=pack_released(cfg),
+        node_influence=node_influence,
     )
+    comm = comm_report(cfg, g, part)
+    if telemetry.enabled():
+        telemetry.gauge("federated.rounds").set(float(cfg.rounds))
+        telemetry.gauge("federated.seconds").set(float(seconds))
+        if privacy["epsilon"] is not None:
+            telemetry.gauge("privacy.epsilon").set(float(privacy["epsilon"]))
     return {
-        "params": params,
+        "params": _as_parameters(params),
         "val_curve": val_curve,
         "test_curve": test_curve,
         "best_val": best_val,
         "best_test": best_test,
         "final_test": test_curve[-1] if test_curve else 0.0,
-        "comm": comm_report(cfg, g, part),
+        "comm": comm,
         "partition": part,
         "seconds": seconds,
         "backend": cfg.backend,
         "mesh": None,
-        "cohort": None,
+        "cohort": cohort,
         "epsilon": privacy["epsilon"],
         "privacy": privacy,
         "manifest": None,
@@ -296,6 +352,81 @@ def _as_parameters(tree: Tree) -> nn.ModuleList:
     return nn.ModuleList([
         nn.ParameterDict({k: nn.Parameter(v) for k, v in layer.items()}) for layer in tree
     ])
+
+
+# ---------------------------------------------------------------------------
+# Run set-up shared by the Trainer's loop and the cohort driver
+# ---------------------------------------------------------------------------
+
+class RunSetup(NamedTuple):
+    """What a vmap run builds once: the partition, the initial global
+    params, the local phase and the evaluation of the global params."""
+
+    part: Partition
+    params: Tree
+    local_update: Callable
+    evaluate: Callable      # params -> (val_acc, test_acc) as floats
+
+
+def setup_run(cfg: FederatedConfig, g: Graph, dev: torch.device,
+              params: Optional[Any], pack: Optional[Any]) -> RunSetup:
+    part = dirichlet_partition(g.labels, cfg.num_clients, cfg.beta, cfg.seed)
+    init_fn, forward = build_forward(cfg, g, dev, pack)
+    if params is None:
+        gparams = init_fn(torch.Generator().manual_seed(cfg.seed))
+    else:
+        gparams = param_tree(params_from_numpy(params, device=dev))
+    labels = torch.as_tensor(g.labels, dtype=torch.int64, device=dev)
+    val_mask = torch.as_tensor(g.val_mask, device=dev)
+    test_mask = torch.as_tensor(g.test_mask, device=dev)
+    full_mask = torch.as_tensor(g.nbr_mask, device=dev)
+
+    def evaluate(p):
+        with torch.inference_mode():
+            logits = forward(p, full_mask)
+            return (float(masked_accuracy(logits, labels, val_mask)),
+                    float(masked_accuracy(logits, labels, test_mask)))
+
+    return RunSetup(part, gparams, make_local_update(make_loss_fn(forward, labels), cfg),
+                    evaluate)
+
+
+class ClientOptimizers:
+    """The Adam states of all K clients on the run's device, each leaf with
+    a leading client axis; a client's local phase reads its row and writes
+    it back, so unselected clients keep theirs."""
+
+    def __init__(self, template: Tree, num_clients: int):
+        dev = tree_leaves(template)[0].device
+        K = num_clients
+        self.step = torch.zeros(K, dtype=torch.int32, device=dev)
+        self.mu = tree_map(lambda p: torch.zeros((K,) + p.shape, dtype=p.dtype, device=dev),
+                           template)
+        self.nu = tree_map(lambda p: torch.zeros((K,) + p.shape, dtype=p.dtype, device=dev),
+                           template)
+
+    def local_phase(self, local_update: Callable, gparams: Tree, c: int,
+                    nb_mask: torch.Tensor, tr_mask: torch.Tensor, noise_seed: int) -> Tree:
+        """Client ``c``'s local update from ``gparams``; returns its params."""
+        opt = AdamState(self.step[c], tree_map(lambda x: x[c], self.mu),
+                        tree_map(lambda x: x[c], self.nu))
+        p, opt = local_update(gparams, opt, nb_mask, tr_mask, noise_seed)
+        self.step[c] = opt.step
+        tree_map(lambda full, new: full[c].copy_(new), self.mu, opt.mu)
+        tree_map(lambda full, new: full[c].copy_(new), self.nu, opt.nu)
+        return p
+
+
+def record_epsilon(cfg: FederatedConfig, t: int) -> None:
+    """Host-side ε trajectory for traced DP runs: the accountant's value
+    after round ``t``, as the ``privacy.epsilon`` gauge and an event."""
+    priv = cfg.privacy
+    if not (telemetry.enabled() and priv.dp_enabled):
+        return
+    q = num_selected(cfg) / cfg.num_clients
+    eps = compute_epsilon(priv.noise_multiplier, t + 1, q, priv.delta)
+    telemetry.gauge("privacy.epsilon").set(eps)
+    telemetry.event("privacy.round", round=t, epsilon=telemetry.gauge("privacy.epsilon").value)
 
 
 # ---------------------------------------------------------------------------
@@ -331,24 +462,39 @@ class Trainer:
                 )
         if not 0.0 <= cfg.churn_drop_rate < 1.0 or not 0.0 <= cfg.churn_join_rate < 1.0:
             raise ValueError("churn rates must be in [0, 1)")
-        if (cfg.churn_drop_rate > 0 or cfg.churn_join_rate > 0) and (
-                cfg.aggregation_mode != "buffered"):
-            raise ValueError(
-                "mid-round churn (churn_drop_rate / churn_join_rate) "
-                "requires aggregation_mode='buffered'"
-            )
+        if cfg.churn_drop_rate > 0 or cfg.churn_join_rate > 0:
+            if cfg.aggregation_mode != "buffered":
+                raise ValueError(
+                    "mid-round churn (churn_drop_rate / churn_join_rate) "
+                    "requires aggregation_mode='buffered'"
+                )
+            if cfg.privacy.noise_multiplier > 0:
+                raise ValueError(
+                    "mid-round churn with DP noise is not supported: the "
+                    "noise std and the RDP accountant are calibrated to the "
+                    "CS(t) participant count, which churn perturbs — disable "
+                    "churn or set noise_multiplier=0"
+                )
         cfg.privacy.validate()
-        # What this package does not run yet. (The reference's further
-        # privacy checks combine mechanisms that are all refused here.)
+        if cfg.privacy.secure_agg_protocol and cfg.churn_join_rate > 0:
+            raise ValueError(
+                "secure_agg_mode='protocol' runs key agreement over the "
+                "round's advertised CS(t) cohort, so clients joining "
+                "mid-round (churn_join_rate > 0) have no pairwise keys — "
+                "use secure_agg_mode='pairwise' or disable join churn "
+                "(drop churn is supported: dropped clients' masks are "
+                "recovered from secret shares)"
+            )
+        if cfg.privacy.pack_noise_multiplier > 0 and not pack_released(cfg):
+            raise ValueError(
+                f"pack_noise_multiplier > 0 but method {cfg.method!r} with "
+                f"engine {method_model_config(cfg).engine!r} never releases "
+                "a pack — there is nothing to noise (use a pack-based "
+                "engine like 'matrix'/'vector', or drop the knob)"
+            )
+        # What this package does not run yet.
         if cfg.backend == "shard_map":
             raise NotImplementedError("the shard_map backend is not ported to repro_torch yet")
-        if cfg.max_concurrent_clients is not None or cfg.aggregation_mode != "sync":
-            raise NotImplementedError("cohort streaming is not ported to repro_torch yet")
-        if cfg.privacy.enabled:
-            raise NotImplementedError(
-                "privacy mechanisms (DP, secure aggregation, pack noise) are not "
-                "ported to repro_torch yet"
-            )
         if cfg.method not in ("fedgat", "distgat", "fedgcn"):
             raise ValueError(f"unknown federated method {cfg.method!r}")
         self.cfg = cfg
@@ -365,68 +511,55 @@ class Trainer:
         bits, so passing the reference's own initial params (and pack) is
         the only way to hold the two packages' trajectories against each
         other."""
+        if cohort_active(self.cfg):
+            # Cohort streaming: the same schedule and privacy streams, with
+            # lanes bounded by max_concurrent_clients instead of n_sel.
+            return run_cohort_rounds(g, self.cfg, backend="vmap", device=self.device,
+                                     params=params, pack=pack)
         return self._run_vmap(g, params, pack)
 
     def _run_vmap(self, g: Graph, params: Optional[Any], pack: Optional[Any]) -> Dict[str, Any]:
         cfg, dev = self.cfg, self.device
-        part = dirichlet_partition(g.labels, cfg.num_clients, cfg.beta, cfg.seed)
-        nb_masks, tr_masks = client_masks(cfg, g, part, dev)
-        init_fn, forward = build_forward(cfg, g, dev, pack)
-        if params is None:
-            gparams = init_fn(torch.Generator().manual_seed(cfg.seed))
-        else:
-            gparams = param_tree(params_from_numpy(params, device=dev))
-        labels = torch.as_tensor(g.labels, dtype=torch.int64, device=dev)
-        val_mask = torch.as_tensor(g.val_mask, device=dev)
-        test_mask = torch.as_tensor(g.test_mask, device=dev)
-        full_mask = torch.as_tensor(g.nbr_mask, device=dev)
-        local_update = make_local_update(make_loss_fn(forward, labels), cfg)
+        run = setup_run(cfg, g, dev, params, pack)
+        nb_masks, tr_masks = client_masks(cfg, g, run.part, dev)
+        bank = ClientOptimizers(run.params, cfg.num_clients)
+        server_state = adam_init(run.params)
+        priv = cfg.privacy
+        noise_base, mask_base = noise_base_key(cfg.seed), mask_base_key(cfg.seed)
+        sel_sched, chosen_sched = selection_schedule(cfg)
 
-        # The optimizer states of all K clients, each leaf with a client axis;
-        # a round gathers its chosen clients' rows and writes them back.
-        K = cfg.num_clients
-        bank = AdamState(
-            step=torch.zeros(K, dtype=torch.int32, device=dev),
-            mu=tree_map(lambda p: torch.zeros((K,) + p.shape, dtype=p.dtype, device=dev), gparams),
-            nu=tree_map(lambda p: torch.zeros((K,) + p.shape, dtype=p.dtype, device=dev), gparams),
-        )
-        server_state = adam_init(gparams)
-
-        def round_step(gparams, server_state, chosen):
+        def round_step(gparams, server_state, t):
             client_params = []
-            for c in chosen.tolist():
-                opt = AdamState(bank.step[c], tree_map(lambda x: x[c], bank.mu),
-                                tree_map(lambda x: x[c], bank.nu))
-                p, opt = local_update(
-                    gparams, opt, nb_masks[c].contiguous(), tr_masks[c]
-                )
-                bank.step[c] = opt.step
-                tree_map(lambda full, new: full[c].copy_(new), bank.mu, opt.mu)
-                tree_map(lambda full, new: full[c].copy_(new), bank.nu, opt.nu)
+            for c in chosen_sched[t].tolist():
+                p = bank.local_phase(run.local_update, gparams, c, nb_masks[c].contiguous(),
+                                     tr_masks[c], client_round_key(noise_base, t, c))
+                if priv.secure_agg:
+                    # Each selected client ships a masked update; the
+                    # pairwise masks cancel in the mean below.
+                    p = add_client_mask(mask_base, t, c, sel_sched[t], p, priv.mask_scale)
                 client_params.append(p)
             stacked = tree_map(lambda *ps: torch.stack(ps), *client_params)
             if cfg.aggregator == "fedadam":
                 return fedadam_server(gparams, stacked, server_state, cfg.server_lr)
             return fedavg(stacked), server_state
 
+        gparams = run.params
         val_curve: List[float] = []
         test_curve: List[float] = []
         t0 = time.time()
-        sel_sched, chosen_sched = selection_schedule(cfg)
         for t in range(cfg.rounds):
             with telemetry.span("round", round=t, backend="vmap"):
                 with telemetry.span("step", selected=int(sel_sched[t].sum())):
-                    gparams, server_state = round_step(gparams, server_state, chosen_sched[t])
-                with telemetry.span("evaluate"), torch.inference_mode():
-                    logits = forward(gparams, full_mask)
-                    va = masked_accuracy(logits, labels, val_mask)
-                    ta = masked_accuracy(logits, labels, test_mask)
-            val_curve.append(float(va))
-            test_curve.append(float(ta))
+                    gparams, server_state = round_step(gparams, server_state, t)
+                with telemetry.span("evaluate"):
+                    va, ta = run.evaluate(gparams)
+            val_curve.append(va)
+            test_curve.append(ta)
+            record_epsilon(cfg, t)
 
         return build_result(
-            cfg=cfg, params=_as_parameters(gparams), val_curve=val_curve,
-            test_curve=test_curve, part=part, g=g, seconds=time.time() - t0,
+            cfg=cfg, params=gparams, val_curve=val_curve,
+            test_curve=test_curve, part=run.part, g=g, seconds=time.time() - t0,
         )
 
 

@@ -1,3 +1,3 @@
-from repro_torch.optim.adamw import AdamState, adam_init, adam_update
+from repro_torch.optim.adamw import AdamState, adam_init, adam_update, clip_by_global_norm
 
-__all__ = ["AdamState", "adam_init", "adam_update"]
+__all__ = ["AdamState", "adam_init", "adam_update", "clip_by_global_norm"]

@@ -2,8 +2,9 @@
 
 The port of ``repro/optim/adamw.py::adam_init``/``adam_update`` in the
 reference's exact form ``p - lr * (mhat / (sqrt(vhat) + eps) + wd * p)``,
-with an int32 step count cast to float32 for the bias corrections.
-``sgd_update`` and ``clip_by_global_norm`` wait for the LM slice.
+with an int32 step count cast to float32 for the bias corrections, and
+``clip_by_global_norm`` (DP clipping). ``sgd_update`` waits for the LM
+slice.
 """
 from __future__ import annotations
 
@@ -55,3 +56,12 @@ def adam_update(
         return p - lr * (mhat / (torch.sqrt(vhat) + eps) + weight_decay * p)
 
     return tree_map(upd, params, mu, nu), AdamState(step=step, mu=mu, nu=nu)
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Tree, max_norm: float) -> Tree:
+    """Scale every leaf by ``min(1, max_norm / max(||grads||_2, 1e-12))``,
+    the global norm taken over all leaves in float32."""
+    norm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in tree_leaves(grads)))
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return tree_map(lambda g: (g * scale).to(g.dtype), grads)

@@ -3,9 +3,8 @@
 The port of ``repro/privacy/config.py``: the same frozen dataclass, field
 for field, with ``validate()``, so a bundle's ``meta["privacy"]`` written by
 the port loads in the reference's ``load_bundle``. The default is the
-identity (no mechanism active). The mechanisms themselves (DP clipping and
-noise, secure aggregation, pack noise) are not ported yet, and the port's
-Trainer refuses a config that turns any of them on.
+identity (no mechanism active): a Trainer run with the default config is
+bit-identical to one without the privacy stack.
 """
 from __future__ import annotations
 

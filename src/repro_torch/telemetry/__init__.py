@@ -1,9 +1,10 @@
 """repro_torch.telemetry — spans and process-wide metrics for the port.
 
-The serving slice's copy of ``repro.telemetry``: a :func:`span` context
-manager that is off by default (a shared no-op until :func:`enable`), and
-the counters and histograms of :mod:`repro_torch.telemetry.metrics`.
-No manifests, event sink or exporters.
+The port's copy of ``repro.telemetry``: a :func:`span` context manager
+and an :func:`event` recorder that are off by default (no-ops until
+:func:`enable`), and the counters, gauges and histograms of
+:mod:`repro_torch.telemetry.metrics`, which are always live. No
+manifests, JSONL sink or exporters.
 """
 from __future__ import annotations
 
@@ -13,16 +14,17 @@ from contextlib import nullcontext
 from typing import Any, Dict, List, NamedTuple
 
 from repro_torch.telemetry import metrics as metrics
-from repro_torch.telemetry.metrics import counter, histogram
+from repro_torch.telemetry.metrics import counter, gauge, histogram
 
 __all__ = [
-    "SpanRecord", "counter", "disable", "enable", "enabled", "histogram",
-    "metrics", "records", "reset", "span",
+    "SpanRecord", "counter", "disable", "enable", "enabled", "event", "events",
+    "gauge", "histogram", "metrics", "records", "reset", "span",
 ]
 
 _NULL_SPAN = nullcontext()
 _enabled = False
 _records: List["SpanRecord"] = []
+_events: List[Dict[str, Any]] = []
 _local = threading.local()
 
 
@@ -72,8 +74,14 @@ def disable() -> None:
 
 
 def reset() -> None:
-    """Drop the recorded spans."""
+    """Drop the recorded spans and events."""
     _records.clear()
+    _events.clear()
+
+
+def events() -> List[Dict[str, Any]]:
+    """The events recorded since the last :func:`reset`, in order."""
+    return list(_events)
 
 
 def records() -> List[SpanRecord]:
@@ -87,3 +95,10 @@ def span(name: str, /, **args):
     if not _enabled:
         return _NULL_SPAN
     return _Span(name, args)
+
+
+def event(name: str, /, **fields) -> None:
+    """Record a structured event ``{"event": name, "ts": ..., **fields}``
+    when telemetry is enabled; a no-op when disabled (the default)."""
+    if _enabled:
+        _events.append({"event": name, "ts": time.time(), **fields})

@@ -1,16 +1,17 @@
 """Process-wide counters and bounded histograms (pure Python).
 
 The serving slice's copy of ``repro/telemetry/metrics.py``: only
-:class:`Counter`, :class:`Histogram` and :func:`counter` — what the pack
-cache and the scheduler use. Gauges, snapshots and manifests are not
-carried over.
+:class:`Counter`, :class:`Gauge`, :class:`Histogram` and their
+process-wide accessors — what the pack cache, the scheduler, the cohort
+driver and the privacy stack use. Snapshots and manifests are not carried
+over.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
-__all__ = ["Counter", "Histogram", "counter", "histogram"]
+__all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge", "histogram"]
 
 
 class Counter:
@@ -28,6 +29,23 @@ class Counter:
 
     def inc(self, n: int = 1) -> None:
         self._value += n
+
+
+class Gauge:
+    """Last-value measurement (``None`` until first set)."""
+
+    __slots__ = ("name", "_value")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._value: Optional[float] = None
+
+    @property
+    def value(self) -> Optional[float]:
+        return self._value
+
+    def set(self, v: float) -> None:
+        self._value = float(v)
 
 
 class Histogram:
@@ -124,6 +142,7 @@ class Histogram:
         return v_lo + frac * (value_at(lo_rank + 1) - v_lo)
 
 _COUNTERS: Dict[str, Counter] = {}
+_GAUGES: Dict[str, Gauge] = {}
 _HISTOGRAMS: Dict[str, Histogram] = {}
 
 
@@ -133,6 +152,14 @@ def counter(name: str) -> Counter:
     if c is None:
         c = _COUNTERS[name] = Counter(name)
     return c
+
+
+def gauge(name: str) -> Gauge:
+    """The process-wide gauge ``name`` (created on first use)."""
+    g = _GAUGES.get(name)
+    if g is None:
+        g = _GAUGES[name] = Gauge(name)
+    return g
 
 
 def histogram(name: str) -> Histogram:

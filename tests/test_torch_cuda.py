@@ -14,7 +14,10 @@ one at hd 16-128 on both load paths (bulk copies, cp.async) and with
 strong decay. The pack engines (``matrix``, ``vector``; plain PyTorch, no
 kernel) on the card against the CPU at ``tiny`` and ``sbm_1k``, their
 training, a pack cache saved on the CPU and loaded onto the card, and a
-server's refresh bit for bit.
+server's refresh bit for bit. The privacy stack on the card: DP noise and
+pairwise masks equal the CPU's (both are drawn on CPU generators), pack
+noise drawn on the card with its calibrated std, and cohort training with
+DP, pairwise masks or the protocol against the same run on the CPU.
 
 Imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -793,3 +796,98 @@ def test_cuda_pack_engine_training_matches_cpu_training(engine):
     np.testing.assert_allclose(gpu["test_curve"], cpu["test_curve"], atol=1e-6)
     for a, b in zip(gpu["params"].parameters(), cpu["params"].parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-3, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Cohort streaming and the privacy stack on the card
+# ---------------------------------------------------------------------------
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+
+
+def _small_trees(device):
+    gen = torch.Generator().manual_seed(3)
+    return [{"W": torch.randn(6, 5, generator=gen).to(device),
+             "a": torch.randn(5, generator=gen).to(device)}]
+
+
+@pytest.mark.cuda
+def test_cuda_dp_noise_and_pairwise_masks_equal_the_cpus():
+    _needs_card()
+    from repro_torch.privacy import (PrivacyConfig, add_client_mask, make_dp_transform,
+                                     mask_base_key, tree_add_normal)
+
+    cpu, gpu = _small_trees("cpu"), _small_trees("cuda")
+    noised = tree_add_normal(17, gpu, 0.3)
+    assert noised[0]["W"].is_cuda
+    want = tree_add_normal(17, cpu, 0.3)
+    for k in ("W", "a"):
+        assert torch.equal(noised[0][k].cpu(), want[0][k])
+    dp = make_dp_transform(PrivacyConfig(clip=0.5, noise_multiplier=0.8), 4)
+    local_cpu = [{k: v * 2.0 for k, v in cpu[0].items()}]
+    local_gpu = [{k: v * 2.0 for k, v in gpu[0].items()}]
+    got, want = dp(5, gpu, local_gpu), dp(5, cpu, local_cpu)
+    for k in ("W", "a"):
+        torch.testing.assert_close(got[0][k].cpu(), want[0][k], rtol=1e-6, atol=1e-6)
+    sel = np.array([1, 1, 0, 1], np.float32)
+    masked = [add_client_mask(mask_base_key(0), 2, c, sel, gpu, 1.0) for c in (0, 1, 3)]
+    assert masked[0][0]["W"].is_cuda
+    want = add_client_mask(mask_base_key(0), 2, 1, sel, cpu, 1.0)
+    assert torch.equal(masked[1][0]["W"].cpu(), want[0]["W"])
+    total = sum(m[0]["W"] for m in masked) - 3 * gpu[0]["W"]
+    torch.testing.assert_close(total, torch.zeros_like(total), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["matrix", "vector"])
+def test_cuda_noisy_pack_draws_on_the_card(engine):
+    _needs_card()
+    from repro_torch.core import FedGAT
+    from repro_torch.graphs import make_sbm
+    from repro_torch.privacy import noisy_pack, pack_noise_key, pack_sensitivities
+
+    g = make_sbm("sbm_1k", seed=0)
+    pack = FedGAT(FedGATConfig(engine=engine), device="cuda").precommunicate(
+        torch.Generator(device="cuda").manual_seed(0), g)
+    sens = pack_sensitivities(pack, g.features)
+    a = noisy_pack(pack_noise_key(0), pack, g.features, 0.5)
+    b = noisy_pack(pack_noise_key(0), pack, g.features, 0.5)
+    for name in pack._fields:
+        clean, got = getattr(pack, name), getattr(a, name)
+        if name not in sens:
+            assert got is clean
+            continue
+        assert got.is_cuda and torch.equal(got, getattr(b, name))
+        std = float((got - clean).double().std())
+        assert abs(std - 0.5 * sens[name]) < 0.05 * 0.5 * sens[name], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("priv", [
+    dict(clip=1.0, noise_multiplier=0.5),
+    dict(secure_agg=True, secure_agg_mode="pairwise", clip=1.0),
+    dict(secure_agg=True),
+], ids=["dp", "pairwise", "protocol"])
+def test_cuda_cohort_training_matches_cpu_training(priv):
+    _needs_card()
+    from repro_torch.privacy import PrivacyConfig
+
+    g = make_cora_like("tiny", seed=0)
+    cfg = FederatedConfig(num_clients=6, rounds=2, local_steps=2, client_fraction=0.5,
+                          max_concurrent_clients=2, model=FedGATConfig(engine="kernel"),
+                          privacy=PrivacyConfig(**priv))
+    before = cheb_attn_backward.launches
+    on_gpu = run_federated(g, cfg, device="cuda")
+    assert cheb_attn_backward.launches - before == 2 * 3 * 2
+    on_cpu = run_federated(g, cfg, device="cpu")
+    np.testing.assert_allclose(on_gpu["val_curve"], on_cpu["val_curve"], atol=1e-6)
+    np.testing.assert_allclose(on_gpu["test_curve"], on_cpu["test_curve"], atol=1e-6)
+    # The output layer's a1 reaches the logits only through the leaky
+    # ReLU's kink: on tiny its gradient is rounding noise that Adam scales
+    # into steps (tests/test_torch_federated.py), so it is not held.
+    for (name, a), b in zip(on_gpu["params"].named_parameters(), on_cpu["params"].parameters()):
+        if name != "1.a1":
+            torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-3, atol=1e-4)
+    assert on_gpu["epsilon"] == on_cpu["epsilon"] and on_gpu["cohort"] == on_cpu["cohort"]

@@ -451,11 +451,13 @@ def test_serve_cli_quick_trains_and_serves_on_cpu(capsys):
 
 @pytest.mark.parametrize("overrides,error", [
     (dict(backend="shard_map"), NotImplementedError),
-    (dict(max_concurrent_clients=2), NotImplementedError),
-    (dict(aggregation_mode="buffered"), NotImplementedError),
-    (dict(privacy=PrivacyConfig(clip=1.0)), NotImplementedError),
-    (dict(privacy=PrivacyConfig(secure_agg=True)), NotImplementedError),
-    (dict(privacy=PrivacyConfig(pack_noise_multiplier=0.5)), NotImplementedError),
+    (dict(max_concurrent_clients=0), ValueError),
+    (dict(aggregation_mode="buffered", churn_drop_rate=0.1,
+          privacy=PrivacyConfig(noise_multiplier=1.0, clip=1.0)), ValueError),
+    (dict(aggregation_mode="buffered", churn_join_rate=0.1,
+          privacy=PrivacyConfig(secure_agg=True)), ValueError),
+    (dict(privacy=PrivacyConfig(pack_noise_multiplier=0.5)), ValueError),
+    (dict(method="fedgcn", privacy=PrivacyConfig(pack_noise_multiplier=0.5)), ValueError),
     (dict(backend="pmap"), ValueError),
     (dict(client_fraction=0.0), ValueError),
     (dict(aggregation_mode="async"), ValueError),

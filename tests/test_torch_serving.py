@@ -215,7 +215,11 @@ def test_port_imports_neither_jax_nor_repro():
         "       'repro_torch.kernels.flash_attn', 'repro_torch.kernels.poly_attn',\n"
         "       'repro_torch.kernels.wkv_chunk', 'repro_torch.kernels._launch',\n"
         "       'repro_torch.core.fedgat_matrix', 'repro_torch.core.fedgat_vector',\n"
-        "       'repro_torch.analysis.error_bounds', 'repro_torch._rng']\n"
+        "       'repro_torch.analysis.error_bounds', 'repro_torch._rng',\n"
+        "       'repro_torch.federated.cohort', 'repro_torch.privacy.accountant',\n"
+        "       'repro_torch.privacy.dp', 'repro_torch.privacy.secure_agg',\n"
+        "       'repro_torch.privacy.shamir', 'repro_torch.privacy.pack_dp',\n"
+        "       'repro_torch.privacy.attacks.mia']\n"
         "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
     )
