@@ -114,11 +114,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``a1``), and
    ``run_membership_inference``'s advantage equal on both.
 
+8. The distributed backends (``backend="shard_map"``), at ``FedGATConfig()``
+   widths, fedgat through the kernel engine, beta 1.0. Each rank's counts
+   are zeroed just before its run and read just after, in its own process.
+   8a: one process on ``sbm_100k``, K 4, fedavg, 2 rounds of 3 local steps:
+   one-lane cohorts (mesh ``lanes`` [1]), exactly 26 forward and 24
+   backward launches, against the same config through the loop (curves to
+   1e-6, params to 1e-5 but the output layer's ``a1`` at rtol 1e-3 / atol
+   1e-4). 8b: two processes on the card (``launch`` of ``RANK_WORKER``),
+   phase 4's config on ``sbm_1m``: per rank 21 / 18 and 18 / 18 launches,
+   equal param digests, rank 0 against phase 4's curves and params (kept
+   on the host) at 8a's tolerances, the collectives the rule names (gloo
+   with one card, NCCL with a card a rank). 8c: two processes on
+   ``sbm_100k``, K 8, ``client_fraction`` 0.5, DP (clip 1, sigma 0.5)
+   with pairwise masks, 2 rounds of 3 steps: launches per rank from
+   ``selection_schedule``, equal digests, curves to 1e-6 and epsilon equal
+   to the single-process loop's. Each run's s per round and wall time with
+   start-up are printed.
+
 The second-to-last line is a JSON object describing each kernel
-(``launches``: cheb_attn's over the serving, training, kernel-API and
-cohort phases, split in ``launches_by_path``, the backward's over the
-training and cohort phases, the sequence kernels' over the kernel-API
-phase; ``max_abs_err``:
+(``launches``: cheb_attn's over the serving, training, kernel-API, cohort
+and distributed phases, split in ``launches_by_path``, the backward's over
+the training, cohort and distributed phases, the sequence kernels' over
+the kernel-API phase; ``max_abs_err``:
 kernel against plain version); the last line is ``{"ok": true,
 "device": {...}}``. Imports nothing of JAX or of the JAX package.
 """
@@ -1107,6 +1125,14 @@ def params_max_diff(a, b) -> float:
                for p, q in zip(a.parameters(), b.parameters()))
 
 
+def host_named(params):
+    """A result's params as (name, host tensor) pairs; such pairs (a
+    worker's, or phase 4's kept on the host) pass through."""
+    if isinstance(params, torch.nn.Module):
+        return [(n, p.detach().cpu()) for n, p in params.named_parameters()]
+    return params
+
+
 def output_a1_apart(a, b):
     """Two runs' final params as host pairs: (every leaf but the output
     layer's ``a1``, that leaf). The output layer's ``a1`` reaches the logits
@@ -1114,14 +1140,14 @@ def output_a1_apart(a, b):
     rounding noise that Adam scales into steps: from round 2 on it carries
     any earlier rounding difference (tests/test_torch_federated.py's
     docstring; ROADMAP Queue 3)."""
-    out_a1 = f"{len(a) - 1}.a1"
+    a, b = host_named(a), host_named(b)
+    out_a1 = f"{len({n.split('.')[0] for n, _ in a}) - 1}.a1"
     rest, a1 = [], None
-    for (name, p), q in zip(a.named_parameters(), b.parameters()):
-        pair = (p.detach().cpu(), q.detach().cpu())
+    for (name, p), (_, q) in zip(a, b):
         if name == out_a1:
-            a1 = pair
+            a1 = (p, q)
         else:
-            rest.append(pair)
+            rest.append((p, q))
     return rest, a1
 
 
@@ -1421,6 +1447,193 @@ def cohort_privacy_phase(dev, big="sbm_100k", mid="sbm_10k", small="tiny"):
     return cohort_fwd, cohort_bwd
 
 
+# Phase 8's worker: one rank of a shard_map run on the card. It zeroes its
+# own launch counts just before run_federated and reads them just after
+# (counts are per process), and prints its rank, collectives, launches and a
+# sha256 of its final params on a line of its own; the parent reads the
+# same record, with the params, from the rank's file.
+RANK_WORKER = r"""
+import hashlib, json, sys, time
+import torch
+from repro_torch.launch import multiprocess as mp
+rank, nproc, collectives = mp.initialize_worker(device="cuda")
+import torch.distributed as dist
+try:
+    from repro_torch.core import FedGATConfig
+    from repro_torch.federated import FederatedConfig, run_federated
+    from repro_torch.graphs import make_sbm
+    from repro_torch.kernels.cheb_attn import cheb_attn, cheb_attn_backward
+    from repro_torch.privacy import PrivacyConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, spec = sys.argv[1], json.loads(sys.argv[2])
+    kw = dict(spec["cfg"])
+    cfg = FederatedConfig(model=FedGATConfig(engine="kernel"),
+                          privacy=PrivacyConfig(**kw.pop("privacy", {})), **kw)
+    g = make_sbm(spec["graph"], seed=cfg.seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cheb_attn.launches = cheb_attn_backward.launches = 0
+    t0 = time.perf_counter()
+    res = run_federated(g, cfg, backend="shard_map")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = cheb_attn.launches, cheb_attn_backward.launches
+    named = [(n, p.detach().cpu()) for n, p in res["params"].named_parameters()]
+    digest = hashlib.sha256()
+    for n, p in named:
+        digest.update(n.encode() + p.numpy().tobytes())
+    rec = {"rank": rank, "processes": nproc, "collectives": collectives,
+           "device": f"cuda:{torch.cuda.current_device()}", "forward": fwd, "backward": bwd,
+           "params_sha256": digest.hexdigest(), "s_per_round": res["seconds"] / cfg.rounds,
+           "run_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "val_curve": res["val_curve"], "test_curve": res["test_curve"],
+           "epsilon": res["epsilon"], "mesh": res["mesh"]}
+    print(f"rank {rank}: " + json.dumps(rec), flush=True)
+    torch.save({**rec, "params": named}, f"{out}/rank{rank}.pt")
+finally:
+    if dist.is_initialized():
+        dist.destroy_process_group()
+"""
+
+
+def rank_launches(cfg, processes):
+    """Each rank's exact (forward, backward) cheb_attn launches in a
+    shard_map run: a selected client it hosts runs ``local_steps`` of each
+    a round, and rank 0 one evaluation forward a round."""
+    from repro_torch.federated import trainer as fed_trainer
+
+    sel, _ = fed_trainer.selection_schedule(cfg)
+    per = cfg.num_clients // processes
+    want = []
+    for r in range(processes):
+        steps = int(sel[:, r * per:(r + 1) * per].sum()) * cfg.local_steps
+        want.append((steps + (cfg.rounds if r == 0 else 0), steps))
+    return want
+
+
+def run_ranks(label, graph, cfg, processes=2):
+    """``cfg`` over ``processes`` ranks on this host's card(s) through
+    ``launch``; fails unless every rank exits 0 with its exact launch counts
+    and the ranks' params hash equal. Returns (rank records, wall s)."""
+    import tempfile
+    from dataclasses import asdict
+
+    from repro_torch.launch import multiprocess as mp
+
+    spec = {k: v for k, v in asdict(cfg).items() if k not in ("model", "privacy", "backend")}
+    spec["privacy"] = asdict(cfg.privacy)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(HERE, "src") + os.pathsep + env.get("PYTHONPATH", "")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        code = mp.launch([sys.executable, "-c", RANK_WORKER, tmp,
+                          json.dumps({"graph": graph, "cfg": spec})],
+                         processes=processes, devices_per_process=cfg.num_clients // processes,
+                         timeout=600, env=env)
+        wall = time.perf_counter() - t0
+        if code != 0:
+            fail(f"{label}: a worker exited {code}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(processes)]
+    want = rank_launches(cfg, processes)
+    got = [(r["forward"], r["backward"]) for r in ranks]
+    rule = mp.collectives_for("cuda", processes)
+    print(f"{label}: {processes} ranks, collectives {[r['collectives'] for r in ranks]} (rule for "
+          f"{torch.cuda.device_count()} card(s): {rule}), devices {[r['device'] for r in ranks]}; "
+          f"s per round {[round(r['s_per_round'], 3) for r in ranks]} (trainer clock), run "
+          f"{[round(r['run_s'], 2) for r in ranks]} s, wall {wall:.2f} s with start-up; peak "
+          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; launches (forward, backward) per rank "
+          f"{got} (want {want}); params sha256 {[r['params_sha256'][:16] for r in ranks]}",
+          flush=True)
+    if got != want:
+        fail(f"{label}: the per-rank kernel launch counts differ from the schedule's")
+    if len({r["params_sha256"] for r in ranks}) != 1:
+        fail(f"{label}: the ranks' final params differ")
+    if any(r["collectives"] != rule for r in ranks):
+        fail(f"{label}: the ranks did not take the collectives rule's {rule}")
+    mesh = {"axis_names": ["clients"], "axis_sizes": [cfg.num_clients],
+            "num_devices": processes, "num_processes": processes, "platform": "gpu"}
+    if any(r["mesh"] != mesh for r in ranks):
+        fail(f"{label}: mesh {ranks[0]['mesh']} is not {mesh}")
+    return ranks, wall
+
+
+def against(label, got, want_curves, want_params, curve_atol=1e-6):
+    """Curves to ``curve_atol``; params to 1e-5 on every leaf but the output
+    layer's ``a1``, that leaf at phase 4's tolerance (output_a1_apart)."""
+    curves = (np.allclose(got["val_curve"], want_curves[0], atol=curve_atol)
+              and np.allclose(got["test_curve"], want_curves[1], atol=curve_atol))
+    rest, a1 = output_a1_apart(got["params"], want_params)
+    ok = curves and max_diff(rest) <= 1e-5 and all_close([a1])
+    print(f"{label}: curves equal (atol {curve_atol}) {curves}; final params every leaf but the "
+          f"output layer's a1 {max_diff(rest):.3e} (limit 1e-5), that a1 {max_diff([a1]):.3e} "
+          f"(allclose(rtol={GRAD_RTOL},atol={GRAD_ATOL}) {all_close([a1])})", flush=True)
+    if not ok:
+        fail(f"{label}: the distributed run disagrees with its reference run")
+
+
+def distributed_phase(dev, phase4, big="sbm_1m", small="sbm_100k"):
+    """Phase 8: the shard_map backend (see the module docstring).
+    ``phase4`` holds phase 4's config, curves and final params on the
+    host. Returns the ``cheb_attn`` forward and backward launches of its
+    counted runs, over every rank."""
+    from dataclasses import replace
+
+    from repro_torch.core import FedGATConfig
+    from repro_torch.federated import FederatedConfig, run_federated
+    from repro_torch.graphs import make_sbm
+    from repro_torch.privacy import PrivacyConfig
+
+    smi = nvidia_smi()
+    g = make_sbm(small, seed=SEED)
+    print(f"phase 8 {small}: N={g.num_nodes}; {smi}", flush=True)
+
+    # -- 8a: one process: one-lane cohorts against the loop ----------------
+    cfg = FederatedConfig(method="fedgat", num_clients=4, beta=1.0, rounds=2, local_steps=3,
+                          aggregator="fedavg", seed=SEED, model=FedGATConfig(engine="kernel"))
+    want_fwd = cfg.rounds * (cfg.num_clients * cfg.local_steps + 1)
+    want_bwd = cfg.rounds * cfg.num_clients * cfg.local_steps
+    t0 = time.perf_counter()
+    res, fwd, bwd, _ = counted_run(f"8a {small} shard_map, one process (K 4)", g,
+                                   replace(cfg, backend="shard_map"), dev, want_fwd, want_bwd)
+    print(f"8a: wall {time.perf_counter() - t0:.2f} s with set-up; mesh {res['mesh']}", flush=True)
+    if res["mesh"] != {"axis_names": ["lanes"], "axis_sizes": [1], "num_devices": 1,
+                       "num_processes": 1, "platform": "gpu"}:
+        fail(f"8a: the one-process mesh is {res['mesh']}, not one lane")
+    loop = run_federated(g, cfg, device=dev)
+    print(f"8a loop: {loop['seconds'] / cfg.rounds:.3f} s per round (trainer clock)", flush=True)
+    against("8a against the loop", res, (loop["val_curve"], loop["test_curve"]), loop["params"])
+    dist_fwd, dist_bwd = fwd, bwd
+    del res, loop
+
+    # -- 8b: two processes on the card, phase 4's config --------------------
+    ranks, _ = run_ranks(f"8b {big} fedavg K 4, 3 rounds x 3 steps", big, phase4["cfg"])
+    against("8b rank 0 against phase 4", ranks[0], phase4["curves"], phase4["params"])
+    dist_fwd += sum(r["forward"] for r in ranks)
+    dist_bwd += sum(r["backward"] for r in ranks)
+
+    # -- 8c: two processes, DP with pairwise masks --------------------------
+    pcfg = replace(cfg, num_clients=8, client_fraction=0.5,
+                   privacy=PrivacyConfig(clip=1.0, noise_multiplier=0.5, secure_agg=True,
+                                         secure_agg_mode="pairwise"))
+    ranks, _ = run_ranks(f"8c {small} DP (clip 1, sigma 0.5) + pairwise masks, K 8, fraction "
+                         "0.5", small, pcfg)
+    loop = run_federated(g, pcfg, device=dev)
+    curves = (np.allclose(ranks[0]["val_curve"], loop["val_curve"], atol=1e-6)
+              and np.allclose(ranks[0]["test_curve"], loop["test_curve"], atol=1e-6))
+    rest, a1 = output_a1_apart(ranks[0]["params"], loop["params"])
+    print(f"8c against the single-process loop: curves equal (atol 1e-6) {curves}; epsilon "
+          f"{ranks[0]['epsilon']!r} (loop {loop['epsilon']!r}); final params every leaf but the "
+          f"output layer's a1 {max_diff(rest):.3e}, that a1 {max_diff([a1]):.3e} (not held)",
+          flush=True)
+    if not curves or ranks[0]["epsilon"] != loop["epsilon"] or loop["epsilon"] is None:
+        fail("8c: the private distributed run disagrees with the loop")
+    dist_fwd += sum(r["forward"] for r in ranks)
+    dist_bwd += sum(r["backward"] for r in ranks)
+    return dist_fwd, dist_bwd
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -1667,6 +1880,8 @@ def main() -> None:
         fail("the training path's kernel launch counts differ from the schedule's")
     if not all(bool(torch.isfinite(p).all()) for p in res["params"].parameters()):
         fail("trained params are not finite")
+    phase4 = {"cfg": fed_cfg, "curves": (res["val_curve"], res["test_curve"]),
+              "params": host_named(res["params"])}
 
     # Device time of one local step and its parts (after the counts were read).
     from repro_torch.federated.aggregation import fedavg
@@ -1747,6 +1962,12 @@ def main() -> None:
     t0 = time.perf_counter()
     cohort_fwd, cohort_bwd = cohort_privacy_phase(dev)
     print(f"cohort and privacy phase: {time.perf_counter() - t0:.1f}s")
+
+    # -- phase 8: the distributed backends ----------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dist_fwd, dist_bwd = distributed_phase(dev, phase4)
+    print(f"distributed phase: {time.perf_counter() - t0:.1f}s")
     print(f"total {time.perf_counter() - t_start:.1f}s")
 
     print(f"gpu: {nvidia_smi()}")
@@ -1755,9 +1976,10 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cheb_attn.cu",
         "replaces": "src/repro/kernels/cheb_attn.py:146",
-        "launches": launches + train_fwd + bucket_launches + cohort_fwd,
+        "launches": launches + train_fwd + bucket_launches + cohort_fwd + dist_fwd,
         "launches_by_path": {"serve": launches, "train": train_fwd,
-                             "kernel_api": bucket_launches, "cohort": cohort_fwd},
+                             "kernel_api": bucket_launches, "cohort": cohort_fwd,
+                             "distributed": dist_fwd},
         "max_abs_err": max(errs + [bucket_kernel_err]),
         "bucketed_vs_flat_err": bucket_err,
         "load": fwd_load,
@@ -1773,8 +1995,9 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cheb_attn.cu",
         "replaces": "src/repro/kernels/cheb_attn.py:189",
-        "launches": train_bwd + cohort_bwd,
-        "launches_by_path": {"train": train_bwd, "cohort": cohort_bwd},
+        "launches": train_bwd + cohort_bwd + dist_bwd,
+        "launches_by_path": {"train": train_bwd, "cohort": cohort_bwd,
+                             "distributed": dist_bwd},
         "max_abs_err": max(bwd_errs),
         "ms": ms_bwd,
         "plain_ms": ms_bwd_plain,

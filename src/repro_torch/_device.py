@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Union
 
 import torch
+import torch.distributed as dist
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -33,3 +34,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
+
+def process_count() -> int:
+    """Ranks in the default ``torch.distributed`` process group; 1 when
+    none is initialised."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1

@@ -1,7 +1,7 @@
 """Cohort-streaming federated rounds: clients decoupled from lanes.
 
-The port of ``repro/federated/cohort.py``, vmap backend. A round's
-CS(t)-selected clients are split into *cohorts* of at most
+The port of ``repro/federated/cohort.py``. A round's CS(t)-selected
+clients are split into *cohorts* of at most
 ``FederatedConfig.max_concurrent_clients`` clients and streamed through the
 local phase cohort by cohort. The round aggregate is carried as a
 :class:`~repro_torch.federated.aggregation.RunningAggregate` (weighted sum
@@ -24,21 +24,32 @@ Two aggregation modes (``FederatedConfig.aggregation_mode``):
              row. With ``staleness_power=0`` and no churn, buffered mode
              equals sync mode bit for bit.
 
+Backends differ only in how many lanes a cohort has:
+
+  vmap      — ``max_concurrent_clients`` (or the round's participants);
+  shard_map — one lane per device, as in the reference, and a process
+              drives one device: one lane. The run's mesh is that lane
+              (``{"axis_names": ["lanes"], "axis_sizes": [1], ...}``).
+              Cohorts stream in a single process only; under a process
+              group of more ranks the reference's ``NotImplementedError``
+              is raised (federated/sharded.py runs the multi-process
+              rounds).
+
 The round planning (:func:`plan_round`, :func:`plan_rounds`) and the mask
 staging are host numpy and give the reference's plans bit for bit. In the
-reference a cohort is one jitted vmap over its lanes, padding lanes
-included; here a cohort is a loop over its *live* lanes, one local phase
-each, as in the Trainer's loop. A padding lane's weight is 0 and its
-optimizer-state scatter drops in the reference, so skipping it changes no
-result. Staged masks move to the run's device per cohort and are memoised
-for at most ``capacity`` cohorts (mask memory O(lanes · N · B)); the
-per-client optimizer bank stays on the device.
+reference a cohort is one jitted vmap (or shard_map) over its lanes,
+padding lanes included; here a cohort is a loop over its *live* lanes,
+one local phase each, as in the Trainer's loop. A padding lane's weight is
+0 and its optimizer-state scatter drops in the reference, so skipping it
+changes no result. Staged masks move to the run's device per cohort and
+are memoised for at most ``capacity`` cohorts (mask memory
+O(lanes · N · B)); the per-client optimizer bank stays on the device.
 
 With ``secure_agg_mode="protocol"`` each live lane's update goes through
-the host-side protocol (privacy/secure_agg.py): the λ-scaled delta is
-quantized and masked in the field, and the server's unmasking (with
-dropout recovery) yields the round mean. The ``shard_map`` backend is not
-ported and raises ``NotImplementedError``.
+the host-side protocol (privacy/secure_agg.py) on either backend: the
+λ-scaled delta is quantized and masked in the field, and the server's
+unmasking (with dropout recovery) yields the round mean. No params are
+gathered across lanes on that path.
 """
 from __future__ import annotations
 
@@ -50,7 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch import telemetry
-from repro_torch._device import DeviceLike, resolve_device
+from repro_torch._device import DeviceLike, process_count, resolve_device
 from repro_torch._tree import tree_map
 from repro_torch.federated.aggregation import (
     fedadam_update,
@@ -91,16 +102,18 @@ def cohort_active(cfg) -> bool:
     )
 
 
-def cohort_lanes(cfg, backend: str = "vmap") -> int:
+def cohort_lanes(cfg, backend: str = "vmap", num_devices: Optional[int] = None) -> int:
     """Lanes per cohort: ``max_concurrent_clients`` caps it, and a cohort
-    never needs more lanes than the round has participants."""
+    never needs more lanes than the round has participants; the shard_map
+    backend also caps it at the device count (one lane per device), which
+    defaults to 1: a process drives one device."""
     from repro_torch.federated.trainer import num_selected
 
-    if backend != "vmap":
-        raise NotImplementedError(f"cohort streaming on {backend!r} is not ported")
     lanes = num_selected(cfg)
     if cfg.max_concurrent_clients is not None:
         lanes = min(lanes, cfg.max_concurrent_clients)
+    if backend == "shard_map":
+        lanes = min(lanes, num_devices if num_devices else 1)
     return max(1, lanes)
 
 
@@ -267,20 +280,20 @@ def run_cohort_rounds(
     params: Optional[Any] = None,
     pack: Optional[Any] = None,
 ) -> Dict[str, Any]:
-    """Cohort-streamed paper Algorithm 2 on ``device`` (default ``cuda``).
-    ``params`` and ``pack`` are the initial params and the pre-communicated
-    pack, as for :meth:`~repro_torch.federated.trainer.Trainer.run`."""
+    """Cohort-streamed paper Algorithm 2 on ``device`` (default ``cuda``),
+    with the lanes of ``backend`` (:func:`cohort_lanes`). ``params`` and
+    ``pack`` are the initial params and the pre-communicated pack, as for
+    :meth:`~repro_torch.federated.trainer.Trainer.run`."""
     from repro_torch.federated.trainer import (
         ClientOptimizers,
+        Mesh,
         build_result,
         record_epsilon,
         selection_schedule,
         setup_run,
     )
 
-    if backend == "shard_map":
-        raise NotImplementedError("the shard_map backend is not ported to repro_torch yet")
-    if backend != "vmap":
+    if backend not in ("vmap", "shard_map"):
         raise ValueError(f"unknown backend {backend!r}")
     dev = resolve_device(device)
     K = cfg.num_clients
@@ -306,6 +319,17 @@ def run_cohort_rounds(
         )
 
     lanes = cohort_lanes(cfg, backend)
+    mesh = None
+    if backend == "shard_map":
+        if process_count() > 1:
+            raise NotImplementedError(
+                "cohort streaming runs on a single-process mesh; multi-"
+                "process runs keep the one-client-per-shard layout (unset "
+                "max_concurrent_clients / use aggregation_mode='sync', and "
+                "with secure aggregation use secure_agg_mode='pairwise' — "
+                "the in-jit masks that cancel in the cross-process psum)"
+            )
+        mesh = Mesh("lanes", lanes, 1, dev)
     protocol = cfg.privacy.secure_agg_protocol
     bank = ClientOptimizers(gparams, K)
     server_state = adam_init(gparams)
@@ -411,5 +435,5 @@ def run_cohort_rounds(
     return build_result(
         cfg=cfg, params=gparams, val_curve=val_curve,
         test_curve=test_curve, part=run.part, g=g, seconds=time.time() - t0,
-        cohort=cohort_report,
+        mesh=mesh, cohort=cohort_report,
     )

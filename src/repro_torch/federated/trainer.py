@@ -1,4 +1,4 @@
-"""Federated training (paper Algorithm 2), vmap backend.
+"""Federated training (paper Algorithm 2), vmap and shard_map backends.
 
 The port of ``repro/federated/trainer.py``. What distinguishes clients is
 (a) which training labels they hold and (b) which edges they may see:
@@ -7,13 +7,26 @@ pre-training communication, DistGAT clients have cross-client edges
 dropped. Each round the selected clients run local Adam steps from the
 global params, then FedAvg/FedProx/FedAdam aggregates them.
 
-The reference's ``vmap`` backend stacks clients on a batch axis. Here it is
-a Python loop over the round's chosen clients, in ``chosen`` order: the
-CUDA kernels are launched through ``ctypes`` inside an
-``autograd.Function``, which has no ``torch.func.vmap`` rule, and a loop
-keeps one client's activations on the card at a time. The schedule, the
-partition and the update math are the reference's, so the two packages'
-trajectories agree given the same initial params.
+Two backends realise the same schedule (``FederatedConfig.backend``):
+
+  vmap       — the reference stacks clients on a batch axis; here it is a
+               Python loop over the round's chosen clients, in ``chosen``
+               order: the CUDA kernels are launched through ``ctypes``
+               inside an ``autograd.Function``, which has no
+               ``torch.func.vmap`` rule, and a loop keeps one client's
+               activations on the card at a time.
+  shard_map  — the paper's communication pattern (federated/sharded.py):
+               a process drives one device, the ranks of a
+               ``torch.distributed`` process group stand for the
+               reference's mesh, each rank hosts a block of clients, and
+               one ``all_reduce`` a round aggregates. In one process it
+               streams one-lane cohorts, as the reference does with fewer
+               devices than clients.
+
+The schedule, the partition and the update math are the reference's, so
+the two packages' trajectories agree given the same initial params. Every
+result carries ``mesh`` (:func:`mesh_description`, ``None`` for vmap) and
+a run ``manifest`` (telemetry/manifest.py).
 
 Supported methods:
   fedgat   — the paper's algorithm (engine: any registered engine; the
@@ -36,8 +49,7 @@ churn, and the secure-aggregation ``protocol``) runs through
 is wired as in the reference: DP clipping and noise at the end of
 :func:`make_local_update` (noise drawn on a CPU generator, so the card and
 the CPU add the same noise), pairwise masks in the round step, pack noise
-in :func:`build_forward`. Not ported yet, and refused by :class:`Trainer`
-with ``NotImplementedError``: the ``shard_map`` backend.
+in :func:`build_forward`.
 """
 from __future__ import annotations
 
@@ -82,6 +94,7 @@ from repro_torch.privacy import (
     pack_noise_key,
     privacy_report,
 )
+from repro_torch.telemetry.manifest import build_manifest
 
 BACKENDS = ("vmap", "shard_map")
 Tree = Any
@@ -90,7 +103,7 @@ Tree = Any
 @dataclass(frozen=True)
 class FederatedConfig:
     method: str = "fedgat"            # fedgat | distgat | fedgcn
-    backend: str = "vmap"             # vmap | shard_map (not ported)
+    backend: str = "vmap"             # vmap | shard_map
     num_clients: int = 10
     beta: float = 1.0                 # Dirichlet: 1 = non-iid, 1e4 = iid
     rounds: int = 60
@@ -300,6 +313,32 @@ def comm_report(cfg: FederatedConfig, g: Graph, part: Partition):
     return fn(g, part, num_layers=cfg.model.num_layers) if fn is not None else None
 
 
+class Mesh(NamedTuple):
+    """What a shard_map run laid its work over: one named axis (``clients``
+    over the ranks of the process group, or ``lanes`` of a cohort), with one
+    device a rank."""
+
+    axis_name: str
+    axis_size: int
+    num_processes: int
+    device: torch.device
+
+
+def mesh_description(mesh: Optional[Mesh]) -> Optional[Dict[str, Any]]:
+    """Serializable form of a :class:`Mesh` for result dicts, with the
+    reference's keys. ``num_devices`` counts the devices the run drives,
+    one a rank; ``platform`` is ``"gpu"`` for CUDA, else ``"cpu"``."""
+    if mesh is None:
+        return None
+    return {
+        "axis_names": [mesh.axis_name],
+        "axis_sizes": [int(mesh.axis_size)],
+        "num_devices": int(mesh.num_processes),
+        "num_processes": int(mesh.num_processes),
+        "platform": "gpu" if mesh.device.type == "cuda" else "cpu",
+    }
+
+
 def build_result(
     *,
     cfg: FederatedConfig,
@@ -309,11 +348,12 @@ def build_result(
     part: Partition,
     g: Graph,
     seconds: float,
+    mesh: Optional[Mesh] = None,
     cohort: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
     """The reference's result schema. ``cohort`` is the cohort driver's
-    report when the run was cohort-streamed, else ``None``; ``mesh`` and
-    ``manifest`` are ``None`` until the port has a mesh and run manifests."""
+    report when the run was cohort-streamed, else ``None``; ``mesh`` is the
+    shard_map run's :class:`Mesh`, described by :func:`mesh_description`."""
     best_val, best_test = best_metrics(val_curve, test_curve)
     node_influence = (
         node_influence_bound(g) if cfg.privacy.dp_granularity == "node" else None
@@ -340,11 +380,11 @@ def build_result(
         "partition": part,
         "seconds": seconds,
         "backend": cfg.backend,
-        "mesh": None,
+        "mesh": mesh_description(mesh),
         "cohort": cohort,
         "epsilon": privacy["epsilon"],
         "privacy": privacy,
-        "manifest": None,
+        "manifest": build_manifest(cfg=cfg, mesh=mesh_description(mesh)),
     }
 
 
@@ -434,7 +474,8 @@ def record_epsilon(cfg: FederatedConfig, t: int) -> None:
 # ---------------------------------------------------------------------------
 
 class Trainer:
-    """Federated trainer, vmap backend, on one device (default ``cuda``)."""
+    """Federated trainer on one device (default ``cuda``); backend selected
+    by ``cfg.backend``."""
 
     def __init__(self, cfg: FederatedConfig, *, device: DeviceLike = None):
         # The reference's checks (repro/federated/trainer.py, Trainer.__init__).
@@ -492,9 +533,6 @@ class Trainer:
                 "a pack — there is nothing to noise (use a pack-based "
                 "engine like 'matrix'/'vector', or drop the knob)"
             )
-        # What this package does not run yet.
-        if cfg.backend == "shard_map":
-            raise NotImplementedError("the shard_map backend is not ported to repro_torch yet")
         if cfg.method not in ("fedgat", "distgat", "fedgcn"):
             raise ValueError(f"unknown federated method {cfg.method!r}")
         self.cfg = cfg
@@ -511,6 +549,10 @@ class Trainer:
         bits, so passing the reference's own initial params (and pack) is
         the only way to hold the two packages' trajectories against each
         other."""
+        if self.cfg.backend == "shard_map":
+            from repro_torch.federated.sharded import _run_shard_map  # lazy: avoid cycle
+
+            return _run_shard_map(g, self.cfg, device=self.device, params=params, pack=pack)
         if cohort_active(self.cfg):
             # Cohort streaming: the same schedule and privacy streams, with
             # lanes bounded by max_concurrent_clients instead of n_sel.

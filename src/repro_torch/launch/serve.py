@@ -13,7 +13,9 @@ and refreshing those whose Thm 3.5 bound crosses ``--refresh-threshold``)
 and reports latency, drift and cache accounting. ``--engine`` overrides
 the serving engine only. ``--mode lm`` waits for the language-model zoo.
 ``--device cpu`` trains and serves through the plain PyTorch versions; the
-default is the CUDA device.
+default is the CUDA device. ``--telemetry-dir DIR`` records spans and
+events and writes the run's artifacts (trace, metrics, manifest, events)
+to DIR.
 """
 from __future__ import annotations
 
@@ -51,7 +53,14 @@ def run_graph(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fast", action="store_true", help="smoke-size run")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--telemetry-dir", default="",
+                    help="enable repro_torch.telemetry and write the run artifacts "
+                    "(trace.json/metrics.json/manifest.json/events.jsonl) here")
     args = ap.parse_args(argv)
+    from repro_torch import telemetry
+
+    if args.telemetry_dir:
+        telemetry.enable(args.telemetry_dir)
     if args.fast:
         args.dataset = "tiny"
         args.clients = min(args.clients, 2)
@@ -143,6 +152,9 @@ def run_graph(argv=None) -> None:
     c = server.stats()["cache"]
     print(f"cache: entries={c['entries']} hits={c['hits']} misses={c['misses']} "
           f"patches={c['patches']} refreshes={c['refreshes']}")
+    if args.telemetry_dir:
+        paths = telemetry.write_run(args.telemetry_dir)
+        print(f"telemetry: {len(telemetry.records())} spans -> {paths['trace']}")
 
 
 def main(argv=None) -> None:

@@ -3,9 +3,9 @@
 A bundle is a directory holding ``params.npz`` (keys ``params/<layer>/<W|a1|a2>``
 plus ``__step__``) and ``meta.json`` (the effective ``FedGATConfig`` under
 ``"model"``, the privacy config under ``"privacy"``, method, backend,
-num_clients, beta, seed and step). :func:`save_bundle` writes one from a
-Trainer run, readable by both packages' ``load_bundle``; its ``manifest``
-is ``null`` until the port has run manifests. :func:`load_bundle` builds
+num_clients, beta, seed and step, and the run manifest under
+``"manifest"``). :func:`save_bundle` writes one from a Trainer run,
+readable by both packages' ``load_bundle``. :func:`load_bundle` builds
 the parameter structure from ``meta["model"]`` and the serving graph's
 dimensions and checks every stored array against it; ``meta["privacy"]``
 stays a plain dict until privacy mechanisms are ported.
@@ -22,6 +22,7 @@ from torch import nn
 from repro_torch._device import DeviceLike
 from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
 from repro_torch.core.fedgat_model import FedGATConfig, layer_shapes, params_from_numpy
+from repro_torch.telemetry.manifest import build_manifest
 
 PARAMS_NAME = "params.npz"
 META_NAME = "meta.json"
@@ -63,7 +64,7 @@ def save_bundle(
         "step": int(step),
         "model": dataclasses.asdict(method_model_config(fed_cfg)),
         "privacy": dataclasses.asdict(fed_cfg.privacy),
-        "manifest": None,
+        "manifest": build_manifest(cfg=fed_cfg),
     }
     if extra:
         meta.update(extra)

@@ -3,15 +3,15 @@
 The serving slice's copy of ``repro/telemetry/metrics.py``: only
 :class:`Counter`, :class:`Gauge`, :class:`Histogram` and their
 process-wide accessors — what the pack cache, the scheduler, the cohort
-driver and the privacy stack use. Snapshots and manifests are not carried
-over.
+driver and the privacy stack use — and :func:`snapshot`, which
+``telemetry.write_run`` stores as ``metrics.json``.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
-__all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge", "histogram"]
+__all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge", "histogram", "snapshot"]
 
 
 class Counter:
@@ -30,6 +30,9 @@ class Counter:
     def inc(self, n: int = 1) -> None:
         self._value += n
 
+    def snapshot(self) -> Dict[str, Any]:
+        return {"type": "counter", "value": self._value}
+
 
 class Gauge:
     """Last-value measurement (``None`` until first set)."""
@@ -46,6 +49,9 @@ class Gauge:
 
     def set(self, v: float) -> None:
         self._value = float(v)
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {"type": "gauge", "value": self._value}
 
 
 class Histogram:
@@ -141,6 +147,20 @@ class Histogram:
             return v_lo
         return v_lo + frac * (value_at(lo_rank + 1) - v_lo)
 
+    def snapshot(self) -> Dict[str, Any]:
+        if self.count == 0:
+            return {"type": "histogram", "count": 0}
+        return {
+            "type": "histogram",
+            "count": self.count,
+            "mean": self.mean,
+            "min": self.vmin,
+            "max": self.vmax,
+            "p50": self.quantile(50),
+            "p90": self.quantile(90),
+            "p99": self.quantile(99),
+        }
+
 _COUNTERS: Dict[str, Counter] = {}
 _GAUGES: Dict[str, Gauge] = {}
 _HISTOGRAMS: Dict[str, Histogram] = {}
@@ -168,3 +188,9 @@ def histogram(name: str) -> Histogram:
     if h is None:
         h = _HISTOGRAMS[name] = Histogram(name)
     return h
+
+
+def snapshot() -> Dict[str, Dict[str, Any]]:
+    """Serializable {name: {type, value/stats}} of every metric, by name."""
+    every = {**_COUNTERS, **_GAUGES, **_HISTOGRAMS}
+    return {name: every[name].snapshot() for name in sorted(every)}

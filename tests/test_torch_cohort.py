@@ -302,7 +302,13 @@ def test_zero_rounds_and_unported_backends(tiny):
     res = run_federated(g, cfg, device=CPU)
     jres = jtrainer.run_federated(jg, jcfg)
     assert res["cohort"] == jres["cohort"] and res["val_curve"] == []
-    with pytest.raises(NotImplementedError):
-        cohort.run_cohort_rounds(g, cfg, backend="shard_map", device=CPU)
-    with pytest.raises(NotImplementedError):
-        cohort.cohort_lanes(cfg, "shard_map")
+    # The shard_map backend is ported: one process drives one device, so
+    # its cohorts have one lane.
+    assert cohort.cohort_lanes(cfg, "shard_map") == 1
+    run_cfg = dataclasses.replace(cfg, rounds=2)
+    shard = cohort.run_cohort_rounds(g, run_cfg, backend="shard_map", device=CPU)
+    loop = cohort.run_cohort_rounds(g, run_cfg, backend="vmap", device=CPU)
+    assert shard["cohort"]["lanes"] == 1 and shard["cohort"]["cohorts_per_round"] == 4
+    assert shard["mesh"] == {"axis_names": ["lanes"], "axis_sizes": [1], "num_devices": 1,
+                             "num_processes": 1, "platform": "cpu"}
+    _assert_curves_close(shard, loop)

@@ -17,7 +17,10 @@ training, a pack cache saved on the CPU and loaded onto the card, and a
 server's refresh bit for bit. The privacy stack on the card: DP noise and
 pairwise masks equal the CPU's (both are drawn on CPU generators), pack
 noise drawn on the card with its calibrated std, and cohort training with
-DP, pairwise masks or the protocol against the same run on the CPU.
+DP, pairwise masks or the protocol against the same run on the CPU. The
+shard_map backend on the card: one process (one-lane cohorts) against the
+loop with exact launch counts, two ranks sharing card 0 over gloo, and
+two ranks with a card each over NCCL (skipped with fewer than two cards).
 
 Imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -27,6 +30,8 @@ Without a CUDA device every test skips.
 """
 import copy
 import importlib
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -891,3 +896,99 @@ def test_cuda_cohort_training_matches_cpu_training(priv):
         if name != "1.a1":
             torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-3, atol=1e-4)
     assert on_gpu["epsilon"] == on_cpu["epsilon"] and on_gpu["cohort"] == on_cpu["cohort"]
+
+
+@pytest.mark.cuda
+def test_cuda_one_lane_shard_map_matches_the_loop():
+    _needs_card()
+    g = make_cora_like("tiny", seed=0)
+    cfg = FederatedConfig(num_clients=4, rounds=2, local_steps=2,
+                          model=FedGATConfig(engine="kernel", degree=10))
+    before = (cheb_attn.launches, cheb_attn_backward.launches)
+    shard = run_federated(g, cfg, backend="shard_map", device="cuda")
+    launches = (cheb_attn.launches - before[0], cheb_attn_backward.launches - before[1])
+    loop = run_federated(g, cfg, device="cuda")
+    assert launches == (2 * (4 * 2 + 1), 2 * 4 * 2)
+    assert shard["mesh"] == {"axis_names": ["lanes"], "axis_sizes": [1], "num_devices": 1,
+                             "num_processes": 1, "platform": "gpu"}
+    assert shard["cohort"]["lanes"] == 1
+    np.testing.assert_allclose(shard["val_curve"], loop["val_curve"], atol=1e-6)
+    np.testing.assert_allclose(shard["test_curve"], loop["test_curve"], atol=1e-6)
+    for (name, a), b in zip(shard["params"].named_parameters(), loop["params"].parameters()):
+        if name != "1.a1":      # rounding noise that Adam carries (see above)
+            torch.testing.assert_close(a.detach(), b.detach(), rtol=1e-3, atol=1e-4)
+
+
+RANK_WORKER = r"""
+import json, sys
+import torch
+from repro_torch.launch import multiprocess as mp
+rank, nproc, collectives = mp.initialize_worker(device="cuda")
+import torch.distributed as dist
+from repro_torch.core import FedGATConfig
+from repro_torch.federated import FederatedConfig, run_federated
+from repro_torch.federated.trainer import param_tree
+from repro_torch.graphs import make_cora_like
+from repro_torch.kernels.cheb_attn import cheb_attn, cheb_attn_backward
+try:
+    cfg = FederatedConfig(num_clients=4, rounds=2, local_steps=2,
+                          model=FedGATConfig(engine="kernel", degree=10))
+    res = run_federated(make_cora_like("tiny", seed=0), cfg, backend="shard_map")
+    torch.save({"collectives": collectives, "device": str(torch.cuda.current_device()),
+                "launches": (cheb_attn.launches, cheb_attn_backward.launches),
+                "val_curve": res["val_curve"], "test_curve": res["test_curve"],
+                "mesh": res["mesh"],
+                "params": [{k: v.cpu() for k, v in layer.items()}
+                           for layer in param_tree(res["params"])]},
+               f"{sys.argv[1]}/rank{rank}.pt")
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def _two_cuda_ranks(tmp_path, env):
+    """RANK_WORKER on two ranks against the loop on the card: curves,
+    params but the output layer's a1, launches per rank, bit-identical
+    ranks."""
+    from repro_torch.launch import multiprocess as mp
+
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = {**os.environ, **env, "PYTHONPATH": src + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    code = mp.launch([sys.executable, "-c", RANK_WORKER, str(tmp_path)], processes=2,
+                     devices_per_process=2, timeout=300, env=env)
+    assert code == 0
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    g = make_cora_like("tiny", seed=0)
+    loop = run_federated(g, FederatedConfig(num_clients=4, rounds=2, local_steps=2,
+                                            model=FedGATConfig(engine="kernel", degree=10)),
+                         device="cuda")
+    assert ranks[0]["launches"] == (2 * (2 * 2 + 1), 2 * 2 * 2)     # rank 0 evaluates
+    assert ranks[1]["launches"] == (2 * 2 * 2, 2 * 2 * 2)
+    assert ranks[0]["mesh"]["platform"] == "gpu" and ranks[0]["mesh"]["num_processes"] == 2
+    np.testing.assert_allclose(ranks[0]["val_curve"], loop["val_curve"], atol=1e-6)
+    np.testing.assert_allclose(ranks[0]["test_curve"], loop["test_curve"], atol=1e-6)
+    for li, (l0, l1) in enumerate(zip(ranks[0]["params"], ranks[1]["params"])):
+        for k in l0:
+            assert torch.equal(l0[k], l1[k])
+            if (li, k) != (1, "a1"):
+                torch.testing.assert_close(l0[k], loop["params"][li][k].detach().cpu(),
+                                           rtol=1e-3, atol=1e-4)
+    return ranks
+
+
+@pytest.mark.cuda
+def test_cuda_two_gloo_ranks_share_the_card(tmp_path):
+    _needs_card()
+    ranks = _two_cuda_ranks(tmp_path, {"CUDA_VISIBLE_DEVICES": "0"})
+    assert [r["collectives"] for r in ranks] == ["gloo", "gloo"]
+    assert [r["device"] for r in ranks] == ["0", "0"]
+
+
+@pytest.mark.cuda
+def test_cuda_two_nccl_ranks_a_card_each(tmp_path):
+    _needs_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    ranks = _two_cuda_ranks(tmp_path, {})
+    assert [r["collectives"] for r in ranks] == ["nccl", "nccl"]
+    assert [r["device"] for r in ranks] == ["0", "1"]

@@ -45,6 +45,7 @@ from repro.optim.adamw import adam_update as j_adam_update
 from repro.serving import GraphInferenceServer as JServer
 from repro.serving import Query as JQuery
 from repro.serving import load_bundle as j_load_bundle
+from repro.telemetry import config_hash as j_config_hash
 from repro_torch.core import FedGATConfig, get_engine, layered_forward, params_from_numpy
 from repro_torch.core.gat import masked_cross_entropy
 from repro_torch.federated import aggregation as agg
@@ -388,7 +389,9 @@ def test_result_has_the_reference_schema(tiny):
     assert set(res) == set(jres)
     assert res["privacy"] == jres["privacy"]
     assert res["epsilon"] is None and res["backend"] == "vmap"
-    assert res["mesh"] is None and res["cohort"] is None and res["manifest"] is None
+    assert res["mesh"] is None and res["cohort"] is None
+    assert res["manifest"]["config_hash"] == jres["manifest"]["config_hash"]
+    assert res["manifest"]["backend"] == jres["manifest"]["backend"] == "vmap"
     assert all(torch.isfinite(p).all() for p in res["params"].parameters())
 
 
@@ -425,7 +428,8 @@ def test_port_bundle_loads_and_serves_in_both_packages(tiny, tmp_path):
     path = save_bundle(str(tmp_path / "b"), res["params"], cfg, step=2)
     jb = j_load_bundle(str(path), jg)
     tb = load_bundle(str(path), g, device=CPU)
-    assert jb.meta["manifest"] is None and jb.meta["step"] == 2
+    assert jb.meta["manifest"] == tb.meta["manifest"] and jb.meta["step"] == 2
+    assert jb.meta["manifest"]["config_hash"] == j_config_hash(jcfg)
     assert dataclasses.asdict(jb.model) == dataclasses.asdict(tb.model)
     assert jb.privacy.noise_multiplier == 0.0 and not jb.privacy.enabled
     for layer, jlayer, tlayer in zip(res["params"], jb.params, tb.params):
@@ -450,7 +454,6 @@ def test_serve_cli_quick_trains_and_serves_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("overrides,error", [
-    (dict(backend="shard_map"), NotImplementedError),
     (dict(max_concurrent_clients=0), ValueError),
     (dict(aggregation_mode="buffered", churn_drop_rate=0.1,
           privacy=PrivacyConfig(noise_multiplier=1.0, clip=1.0)), ValueError),

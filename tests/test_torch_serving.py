@@ -219,7 +219,9 @@ def test_port_imports_neither_jax_nor_repro():
         "       'repro_torch.federated.cohort', 'repro_torch.privacy.accountant',\n"
         "       'repro_torch.privacy.dp', 'repro_torch.privacy.secure_agg',\n"
         "       'repro_torch.privacy.shamir', 'repro_torch.privacy.pack_dp',\n"
-        "       'repro_torch.privacy.attacks.mia']\n"
+        "       'repro_torch.privacy.attacks.mia', 'repro_torch.federated.sharded',\n"
+        "       'repro_torch.launch.multiprocess', 'repro_torch.telemetry.manifest',\n"
+        "       'repro_torch.telemetry.tracing', 'repro_torch.telemetry.sink']\n"
         "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
     )
