@@ -132,6 +132,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    to the single-process loop's. Each run's s per round and wall time with
    start-up are printed.
 
+9. The language-model substrate (``repro_torch.models``, the train and
+   serve CLIs' lm paths): plain PyTorch, as the reference computes it in
+   jnp, so every kernel's count, zeroed just before each part, must read 0
+   just after it. 9a: ``yi-6b`` at full config (bf16, 6,061,035,520 params,
+   reckoned and allocated bytes printed and held equal) through
+   ``launch.serve.serve_lm``: batch 4, prompt 1024, 32 greedy tokens;
+   prefill seconds, decode ms a token, tok/s, peak memory, finite logits and
+   tokens inside the vocab, then one decode step's device time by
+   torch.profiler (the device's idle share while decoding); the reference's
+   prefill/decode property (tests/test_archs.py:59-97, rtol 5e-3 / atol
+   5e-4) in float32 at full width with 4 layers. 9b: ``rwkv6-1.6b`` likewise
+   (bf16, batch 4, prompt 512, gen 32; the property with 2 layers). 9c:
+   ``granite-moe-1b-a400m`` at full config through ``launch.train.train_lm``:
+   20 steps of batch 4 x 1024: s a step, tok/s, peak memory,
+   ``moe_drop_frac``, every loss finite, the first within 1.5 of
+   log(49408), the mean of the last 5 below the first, every param float32
+   after the first step; then one step's device time. 9d: every assigned
+   arch's ``reduced()`` config, params drawn once on the CPU and copied to
+   the card: forward, prefill logits and cache, one decode step and the loss
+   at rtol 1e-4 / atol 1e-5, the grads at rtol 1e-3 / atol 1e-5, and one
+   train step (params at rtol 1e-4 / atol 1e-5 where |g| >= 1e-6, else
+   within 2 lr).
+
 The second-to-last line is a JSON object describing each kernel
 (``launches``: cheb_attn's over the serving, training, kernel-API, cohort
 and distributed phases, split in ``launches_by_path``, the backward's over
@@ -160,6 +183,9 @@ RTOL, ATOL = 1e-4, 1e-5      # FMA contraction and summation order differ
 # differently under another summation order; the reference's own gradient
 # tolerance (tests/test_kernel_engine.py:275-276).
 GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
+# The LM grads card against CPU: the port's LM tests' gradient rtol
+# (tests/test_torch_lm_models.py) at the card-vs-CPU atol.
+LM_GRAD_RTOL = 1e-3
 F32_ULP = 2.0 ** -24         # unit roundoff of float32
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12     # H100 SXM, float32 outside the tensor cores
@@ -410,9 +436,10 @@ def compare_cheb_attn_backward(label, x, h_nb, mask, coeffs, dout, iso=(), nan_r
     return max(errs[:3] + errs[4:])        # dcoeffs is judged on its own scale
 
 
-def print_step_profile(step) -> None:
+def print_step_profile(step, label: str = "train step") -> float:
     """Device time of one call of ``step`` by kernel, from torch.profiler:
-    the total over kernels and the five largest."""
+    prints the total over kernels and the five largest; returns the total
+    (ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -425,10 +452,11 @@ def print_step_profile(step) -> None:
             if e.device_type == DeviceType.CUDA]          # kernels, not the ops that launch them
     total = sum(ms for _, ms in rows)
     top = sorted(rows, key=lambda r: -r[1])[:5]
-    print(f"train step profile (torch.profiler, {len(rows)} kernels): device total "
+    print(f"{label} profile (torch.profiler, {len(rows)} kernels): device total "
           f"{total:.3f} ms; " + "; ".join(
               f"{name[:70]} {ms:.3f} ms ({100 * ms / max(total, 1e-9):.1f}%)" for name, ms in top),
           flush=True)
+    return total
 
 
 def layer1_inputs(params, h, nbr_idx, nbr_mask):
@@ -737,7 +765,7 @@ def zero_kernel_counts() -> None:
 
 def check_no_kernel_launched(label: str) -> None:
     got = {fn.__name__: fn.launches for fn in kernel_counters()}
-    print(f"{label}: kernel launches {got} (want all 0: the pack engines are plain PyTorch)",
+    print(f"{label}: kernel launches {got} (want all 0: this path is plain PyTorch)",
           flush=True)
     if any(got.values()):
         fail(f"{label} launched a kernel")
@@ -1634,6 +1662,323 @@ def distributed_phase(dev, phase4, big="sbm_1m", small="sbm_100k"):
     return dist_fwd, dist_bwd
 
 
+# -- phase 9: the language-model substrate ----------------------------------
+
+YI6B_PARAMS = 6_061_035_520      # 32 x 173,023,232 a layer + 2 x 64000 x 4096 + 4096
+RWKV6_PARAMS = 1_580_795_904     # 24 x 54,681,600 a layer + 2 x 65536 x 2048 + 2048
+GRANITE_PARAMS = 1_385_481_216   # 24 x 53,512,192 a layer + 2 x 49408 x 1024 + 1024
+ARCH_RTOL, ARCH_ATOL = 5e-3, 5e-4    # tests/test_archs.py:85-97, float32
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch._tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def tree_numel(tree) -> int:
+    from repro_torch._tree import tree_leaves
+
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
+def lm_leaves(obj, prefix=""):
+    """{path: tensor} over dicts and (named) tuples; None (a family's absent
+    cache part) gives nothing."""
+    if obj is None:
+        return {}
+    if isinstance(obj, torch.Tensor):
+        return {prefix: obj}
+    items = (obj.items() if isinstance(obj, dict) else
+             zip(obj._fields, obj) if hasattr(obj, "_fields") else enumerate(obj))
+    out = {}
+    for k, v in items:
+        out.update(lm_leaves(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def lm_close(label, got, want, rtol, atol) -> float:
+    """Every leaf of ``got`` (on the card) against ``want`` (on the CPU);
+    fails on a missing leaf or a value outside the tolerance. Returns the
+    largest absolute difference."""
+    g, w = lm_leaves(got), lm_leaves(want)
+    if sorted(g) != sorted(w):
+        fail(f"{label}: leaves differ: {sorted(set(g) ^ set(w))}")
+    worst = 0.0
+    for k in w:
+        a, b = g[k].detach().cpu(), w[k].detach()
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"{label} {k}: {tuple(a.shape)} {a.dtype} against {tuple(b.shape)} {b.dtype}")
+        if a.is_floating_point():
+            a, b = a.float(), b.float()
+            worst = max(worst, float((a - b).abs().max()) if a.numel() else 0.0)
+            if not torch.allclose(a, b, rtol=rtol, atol=atol):
+                fail(f"{label} {k}: card and CPU differ (max abs {float((a - b).abs().max()):.3e},"
+                     f" rtol {rtol} atol {atol})")
+        elif not torch.equal(a, b):
+            fail(f"{label} {k}: card and CPU differ")
+    return worst
+
+
+def arch_property(label, dev, cfg, seq=64, cache_len=128):
+    """The reference's prefill/decode property (tests/test_archs.py:59-97)
+    at ``cfg``'s widths in float32 on the card: prefill logits at the last
+    prompt position against the full forward, then one decode step against
+    the full forward at the next position."""
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tf
+
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED + 1), dev)
+    tok = torch.randint(0, cfg.vocab_size, (2, seq), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 2))
+    with torch.no_grad():
+        full = tf.lm_forward(params, cfg, tok)[0]
+        lg_pf, cache = model.prefill(params, {"tokens": tok[:, :seq - 1], "cache_len": cache_len})
+        lg_dec, _ = model.decode_step(params, cache, tok[:, seq - 1:])
+    errs = (float((lg_pf[:, -1] - full[:, -2]).abs().max()),
+            float((lg_dec[:, 0] - full[:, -1]).abs().max()))
+    ok = (torch.allclose(lg_pf[:, -1], full[:, -2], rtol=ARCH_RTOL, atol=ARCH_ATOL)
+          and torch.allclose(lg_dec[:, 0], full[:, -1], rtol=ARCH_RTOL, atol=ARCH_ATOL))
+    print(f"{label}: float32 at full width, {cfg.num_layers} layers, {tree_numel(params):,} "
+          f"params, S {seq}: prefill vs forward max abs {errs[0]:.3e}, decode vs forward "
+          f"{errs[1]:.3e} (rtol {ARCH_RTOL} atol {ARCH_ATOL}) {ok}", flush=True)
+    if not ok:
+        fail(f"{label}: prefill/decode disagree with the full forward")
+    del params, full, cache
+    torch.cuda.empty_cache()
+
+
+def serve_full(label, dev, name, reckoned, batch, prompt, gen, smi):
+    """``name``'s full config (bf16) through the serve CLI's lm path."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import build_model
+
+    cfg = get_config(name)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n, nbytes = tree_numel(params), tree_bytes(params)
+    print(f"{label} {name}: {cfg.num_layers} layers, d {cfg.d_model}, {cfg.dtype}; params "
+          f"{n:,} (reckoned {reckoned:,}), {nbytes:,} bytes allocated (reckoned "
+          f"{2 * reckoned:,}); init {init_s:.2f} s", flush=True)
+    if n != reckoned or nbytes != 2 * reckoned:
+        fail(f"{label}: {name}'s params differ from the reckoned count")
+    gen_t = torch.Generator(device=dev).manual_seed(SEED + 3)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), device=dev, generator=gen_t)
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    res = serve_lm(model, params, {"tokens": tokens}, gen, prompt + gen + 8)
+    check_no_kernel_launched(f"{label} ({name} serving)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = gen - 1
+    print(f"{label} {name}: batch {batch}, prompt {prompt}, gen {gen} greedy: prefill "
+          f"{res['prefill_s']:.3f} s ({batch * prompt / res['prefill_s']:.0f} tok/s), decode "
+          f"{1e3 * res['decode_s'] / steps:.2f} ms a token ({steps * batch / res['decode_s']:.1f} "
+          f"tok/s over {steps} steps), peak {peak:.2f} GiB; {smi}", flush=True)
+    toks = res["tokens"]
+    if not bool(torch.isfinite(res["prefill_logits"]).all()) or toks.shape != (batch, gen) \
+            or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        fail(f"{label}: {name}'s logits are not finite or its tokens leave the vocab")
+    # After the counts were read: the device time of one decode step.
+    with torch.no_grad():
+        dev_ms = print_step_profile(
+            lambda: model.decode_step(params, res["cache"], toks[:, -1:]),
+            f"{label} {name} decode step")
+    wall_ms = 1e3 * res["decode_s"] / steps
+    print(f"{label} {name}: decode device time {dev_ms:.3f} ms of {wall_ms:.3f} ms a token: "
+          f"device idle {100 * (1 - dev_ms / wall_ms):.1f}%; {smi}", flush=True)
+    del params, res
+    torch.cuda.empty_cache()
+    return cfg
+
+
+def train_full(dev, smi):
+    """9c: granite-moe-1b-a400m's full config through the train CLI's lm
+    path: 20 steps, batch 4, seq 1024."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_lm_batches
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tf
+
+    name, steps, batch, seq = "granite-moe-1b-a400m", 20, 4, 1024
+    cfg = get_config(name)
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    n = tree_numel(params)
+    print(f"9c {name}: {cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_experts} experts "
+          f"top-{cfg.experts_per_token}, vocab {cfg.padded_vocab()}; params {n:,} (reckoned "
+          f"{GRANITE_PARAMS:,}), {tree_bytes(params):,} bytes", flush=True)
+    if n != GRANITE_PARAMS or cfg.padded_vocab() != 49408:
+        fail("9c: granite's params differ from the reckoned count")
+    drops = []
+    moe_ffn = tf.moe_ffn
+
+    def recorded(p, c, x):        # moe_drop_frac, which lm_loss does not return
+        out, aux = moe_ffn(p, c, x)
+        drops.append(aux["moe_drop_frac"].detach())
+        return out, aux
+
+    batches = make_lm_batches(cfg.vocab_size, batch, seq, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    tf.moe_ffn = recorded
+    try:
+        res = train_lm(cfg, params, batches, steps, log_every=5, batch_tokens=batch * seq)
+    finally:
+        tf.moe_ffn = moe_ffn
+    check_no_kernel_launched(f"9c ({name} training)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = res["losses"]
+    drop = torch.stack(drops).float()
+    dtypes = {str(t.dtype) for t in lm_leaves(res["params"]).values()}
+    print(f"9c {name}: {steps} steps x batch {batch} x seq {seq}: {res['seconds'] / steps:.3f} s "
+          f"a step, {steps * batch * seq / res['seconds']:.0f} tok/s, peak {peak:.2f} GiB; "
+          f"moe_drop_frac mean {float(drop.mean()):.4f} max {float(drop.max()):.4f} over "
+          f"{drop.numel()} layer calls; param dtypes {sorted(dtypes)}; losses "
+          f"{[round(x, 4) for x in losses]}; {smi}", flush=True)
+    first, last5 = losses[0], sum(losses[-5:]) / 5
+    if not all(np.isfinite(losses)):
+        fail("9c: a loss is not finite")
+    if abs(first - np.log(cfg.padded_vocab())) >= 1.5:
+        fail(f"9c: the first loss {first:.4f} is not within 1.5 of log(49408)")
+    if not last5 < first:
+        fail(f"9c: the mean of the last 5 losses {last5:.4f} is not below the first {first:.4f}")
+    if dtypes != {"torch.float32"}:
+        fail(f"9c: param dtypes after training are {dtypes}, not float32")
+    # After the counts were read: the device time of one more step.
+    from repro_torch.launch.steps import make_train_step
+
+    step_fn = make_train_step(cfg)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in next(batches).items()}
+    dev_ms = print_step_profile(lambda: step_fn(res["params"], res["opt"], b),
+                                f"9c {name} train step")
+    wall_ms = 1e3 * res["seconds"] / steps
+    print(f"9c {name}: step device time {dev_ms:.1f} ms of {wall_ms:.1f} ms a step (the run's "
+          f"mean, step 0 in bf16 included): device idle {100 * (1 - dev_ms / wall_ms):.1f}%; "
+          f"{smi}", flush=True)
+    del res, params, b
+    torch.cuda.empty_cache()
+
+
+def archs_card_vs_cpu(dev):
+    """9d: every assigned arch's reduced() config, params drawn once on the
+    CPU and copied to the card: forward, prefill (logits and cache), one
+    decode step, the loss, the grads and one train step, card against CPU."""
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import ASSIGNED_ARCHS, get_config
+    from repro_torch.launch.steps import adam_init_f32, make_train_step, value_and_grad
+    from repro_torch.models import build_model
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import transformer as tf
+
+    B, S = 2, 16
+    rows = []
+    zero_kernel_counts()
+    for name in ASSIGNED_ARCHS:
+        cfg = get_config(name).reduced()
+        model = build_model(cfg)
+        cpu = model.init(torch.Generator().manual_seed(SEED), "cpu")
+        card = tree_map(lambda t: t.to(dev), cpu)
+        rng = np.random.default_rng(SEED)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+                 "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+        if cfg.family == "vlm":
+            batch["prefix"] = rng.standard_normal((B, cfg.prefix_len, cfg.d_model)).astype(
+                np.float32)
+        if cfg.is_encdec:
+            batch["frames"] = rng.standard_normal((B, S // cfg.encoder_ratio, cfg.d_model)).astype(
+                np.float32)
+
+        def run(params, device):
+            b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+            out = {}
+            with torch.no_grad():
+                if cfg.is_encdec:
+                    memory = ed.encode(params, cfg, b["frames"])
+                    out["forward"] = ed.decode_train(params, cfg, b["tokens"], memory)
+                else:
+                    out["forward"] = tf.lm_forward(params, cfg, b["tokens"], prefix=b.get("prefix"),
+                                                   coeffs=tf.cheb_coeffs(cfg))[0]
+                pb = {k: v for k, v in b.items() if k != "labels"}
+                pb["tokens"], pb["cache_len"] = b["tokens"][:, :S - 1], 32
+                out["prefill"] = model.prefill(params, pb)
+                out["decode"] = model.decode_step(params, out["prefill"][1], b["tokens"][:, S - 1:])
+            loss, parts, grads = value_and_grad(model.loss, params, b)
+            out["loss"], out["parts"], out["grads"] = loss, parts, grads
+            stepped, _, step_loss = make_train_step(cfg)(params, adam_init_f32(params), b)
+            out["step"] = (stepped, step_loss)
+            return out
+
+        got, want = run(card, dev), run(cpu, "cpu")
+        errs = {
+            "forward": lm_close(f"9d {name} forward", got["forward"], want["forward"], RTOL, ATOL),
+            "prefill": lm_close(f"9d {name} prefill", got["prefill"], want["prefill"], RTOL, ATOL),
+            "decode": lm_close(f"9d {name} decode", got["decode"], want["decode"], RTOL, ATOL),
+            "loss": lm_close(f"9d {name} loss", (got["loss"], got["parts"]),
+                             (want["loss"], want["parts"]), RTOL, ATOL),
+            "grads": lm_close(f"9d {name} grads", got["grads"], want["grads"],
+                              LM_GRAD_RTOL, ATOL),
+        }
+        # One AdamW step: where |g| < 1e-6 (100 x Adam's eps) the update
+        # lr g / (|g| + eps) turns gradient rounding into up to lr, so
+        # there a param is held to 2 lr (tests/test_torch_lm_substrate.py).
+        new_card, new_cpu = lm_leaves(got["step"][0]), lm_leaves(want["step"][0])
+        g_cpu = lm_leaves(want["grads"])
+        step_err = 0.0
+        for k, b in new_cpu.items():
+            a = new_card[k].cpu()
+            firm = g_cpu[k].abs() >= 1e-6
+            d = (a - b).abs()
+            step_err = max(step_err, float(d.max()))
+            if not (torch.allclose(a[firm], b[firm], rtol=RTOL, atol=ATOL)
+                    and float(d.max()) <= 2 * 3e-4):
+                fail(f"9d {name}: the train step's {k} differs card vs CPU")
+        errs["train step"] = step_err
+        if abs(float(got["step"][1]) - float(want["step"][1])) > ATOL + RTOL * abs(
+                float(want["step"][1])):
+            fail(f"9d {name}: the train step's loss differs card vs CPU")
+        rows.append((name, errs))
+        del cpu, card, got, want
+    check_no_kernel_launched("9d (ten reduced archs, card vs CPU)")
+    for name, errs in rows:
+        print(f"9d {name}: card vs CPU max abs " + ", ".join(
+            f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+    torch.cuda.empty_cache()
+
+
+def lm_phase(dev, smi):
+    """Phase 9: serving (9a yi-6b, 9b rwkv6-1.6b) and training (9c
+    granite-moe-1b-a400m) at full config, and every reduced arch card
+    against CPU (9d). No kernel is on this path: every count must be 0."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    cfg = serve_full("9a", dev, "yi-6b", YI6B_PARAMS, batch=4, prompt=1024, gen=32, smi=smi)
+    zero_kernel_counts()
+    arch_property("9a yi-6b", dev, dataclasses.replace(cfg, dtype="float32", num_layers=4))
+    check_no_kernel_launched("9a (yi-6b float32 property)")
+    t9a = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = serve_full("9b", dev, "rwkv6-1.6b", RWKV6_PARAMS, batch=4, prompt=512, gen=32, smi=smi)
+    zero_kernel_counts()
+    arch_property("9b rwkv6-1.6b", dev, dataclasses.replace(cfg, dtype="float32", num_layers=2))
+    check_no_kernel_launched("9b (rwkv6-1.6b float32 property)")
+    t9b = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_full(dev, smi)
+    t9c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    archs_card_vs_cpu(dev)
+    t9d = time.perf_counter() - t0
+    print(f"phase 9 parts: 9a {t9a:.1f}s, 9b {t9b:.1f}s, 9c {t9c:.1f}s, 9d {t9d:.1f}s; {smi}",
+          flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -1968,6 +2313,12 @@ def main() -> None:
     t0 = time.perf_counter()
     dist_fwd, dist_bwd = distributed_phase(dev, phase4)
     print(f"distributed phase: {time.perf_counter() - t0:.1f}s")
+
+    # -- phase 9: the language-model substrate (no kernel on this path) ----
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm_phase(dev, nvidia_smi())
+    print(f"language-model phase: {time.perf_counter() - t0:.1f}s")
     print(f"total {time.perf_counter() - t_start:.1f}s")
 
     print(f"gpu: {nvidia_smi()}")

@@ -35,6 +35,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def sync(device: torch.device) -> None:
+    """Wait for ``device``'s queued work, so a host clock read next times it
+    (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def process_count() -> int:
     """Ranks in the default ``torch.distributed`` process group; 1 when
     none is initialised."""

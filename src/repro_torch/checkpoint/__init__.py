@@ -1,3 +1,3 @@
-from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
+from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint, tensor_of, unflatten
 
-__all__ = ["load_checkpoint", "save_checkpoint"]
+__all__ = ["load_checkpoint", "save_checkpoint", "tensor_of", "unflatten"]

@@ -1,3 +1,6 @@
-"""Command-line entry points of the port: ``python -m repro_torch.launch.serve``
-(federated graph serving) and ``python -m repro_torch.launch.multiprocess``
-(the shard_map backend over a multi-process group)."""
+"""Command-line entry points of the port: ``python -m repro_torch.launch.train``
+(``graph``: federated FedGAT training; ``lm``: the language-model zoo),
+``python -m repro_torch.launch.serve`` (``--mode lm``, the default, and
+``--mode graph``) and ``python -m repro_torch.launch.multiprocess`` (the
+shard_map backend over a multi-process group); ``launch.steps`` holds the
+LM train, prefill and decode steps."""

@@ -1,4 +1,10 @@
-"""Serving launcher for the port: federated graph inference on the GPU.
+"""Serving launcher for the port — two modes, as ``repro/launch/serve.py``:
+
+  lm     — batched prefill + decode over the language-model zoo (the
+           default mode, as in the reference):
+           python -m repro_torch.launch.serve --arch yi-6b --reduced \
+               --batch 2 --prompt-len 16 --gen-len 8
+  graph  — federated graph inference:
 
     python -m repro_torch.launch.serve --mode graph --ckpt BUNDLE_DIR --engine kernel
     python -m repro_torch.launch.serve --mode graph --clients 4 --rounds 20
@@ -11,8 +17,8 @@ then serves a seeded Poisson query stream through the microbatching
 scheduler, absorbs a graph delta (patching every resident client's pack
 and refreshing those whose Thm 3.5 bound crosses ``--refresh-threshold``)
 and reports latency, drift and cache accounting. ``--engine`` overrides
-the serving engine only. ``--mode lm`` waits for the language-model zoo.
-``--device cpu`` trains and serves through the plain PyTorch versions; the
+the serving engine only. In both modes ``--device cpu`` runs (and trains
+and serves) through the plain PyTorch versions; the
 default is the CUDA device. ``--telemetry-dir DIR`` records spans and
 events and writes the run's artifacts (trace, metrics, manifest, events)
 to DIR.
@@ -21,8 +27,95 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
+
+
+def serve_lm(model, params, batch: Dict[str, torch.Tensor], gen_len: int, cache_len: int, *,
+             temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+    """Prefill ``batch`` then generate ``gen_len`` tokens a sequence: the
+    first from the prefill's logits, then ``gen_len - 1`` decode steps,
+    greedy or sampled at ``temperature`` from ``generator``. Returns the
+    tokens (B, gen_len), the prefill's last-position logits, the final
+    cache and the prefill and decode seconds (device work included)."""
+    from repro_torch._device import sync
+
+    vocab = model.cfg.vocab_size
+    dev = batch["tokens"].device
+    sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = model.prefill(params, dict(batch, cache_len=cache_len))
+    sync(dev)
+    prefill_s = time.perf_counter() - t0
+    prefill_logits = logits
+    tok = torch.argmax(logits[:, -1, :vocab], dim=-1)[:, None]
+    generated = [tok]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(gen_len - 1):
+            logits, cache = model.decode_step(params, cache, tok)
+            lg = logits[:, -1, :vocab]
+            if temperature > 0:
+                probs = torch.softmax(lg / temperature, dim=-1)
+                tok = torch.multinomial(probs, 1, generator=generator)
+            else:
+                tok = torch.argmax(lg, dim=-1)[:, None]
+            generated.append(tok)
+    sync(dev)
+    return {"tokens": torch.cat(generated, dim=1), "prefill_logits": prefill_logits, "cache": cache,
+            "prefill_s": prefill_s, "decode_s": time.perf_counter() - t0}
+
+
+def run_lm(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="LM serving (prefill + decode)")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen-len", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    from repro_torch._device import resolve_device
+    from repro_torch._rng import fold_in, generator
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = build_model(cfg)
+    # Independent streams per consumer: one stream across init and the
+    # synthetic inputs would correlate weights with data.
+    g_params, g_prompt, g_prefix, g_frames, g_sample = (
+        generator(fold_in(args.seed, i), dev) for i in range(5))
+    params = model.init(g_params, dev)
+    B = args.batch
+    cache_len = args.prompt_len + args.gen_len + 8
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, args.prompt_len),
+                                     generator=g_prompt, device=dev)}
+    if cfg.family == "vlm":
+        batch["prefix"] = torch.randn((B, cfg.prefix_len, cfg.d_model),
+                                      generator=g_prefix, device=dev)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(
+            (B, max(args.prompt_len // cfg.encoder_ratio, 2), cfg.d_model),
+            generator=g_frames, device=dev)
+
+    res = serve_lm(model, params, batch, args.gen_len, cache_len,
+                   temperature=args.temperature, generator=g_sample)
+    print(f"prefill: {args.prompt_len} tokens x {B} in {res['prefill_s']:.2f}s (device {dev})")
+    steps, dt = args.gen_len - 1, res["decode_s"]
+    print(f"decode: {steps} steps x {B} seqs in {dt:.2f}s "
+          f"({steps * B / max(dt, 1e-9):.1f} tok/s)")
+    print("generated token ids:\n", res["tokens"].cpu().numpy())
 
 
 def run_graph(argv=None) -> None:
@@ -159,9 +252,9 @@ def run_graph(argv=None) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(add_help=False)
-    ap.add_argument("--mode", choices=("graph",), default="graph")
-    _, rest = ap.parse_known_args(argv)
-    run_graph(rest)
+    ap.add_argument("--mode", choices=("lm", "graph"), default="lm")
+    args, rest = ap.parse_known_args(argv)
+    (run_graph if args.mode == "graph" else run_lm)(rest)
 
 
 if __name__ == "__main__":

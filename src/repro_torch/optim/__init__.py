@@ -1,3 +1,18 @@
-from repro_torch.optim.adamw import AdamState, adam_init, adam_update, clip_by_global_norm
+from repro_torch.optim.adamw import (
+    AdamState,
+    adam_init,
+    adam_update,
+    clip_by_global_norm,
+    sgd_update,
+)
+from repro_torch.optim.schedule import constant_schedule, cosine_schedule
 
-__all__ = ["AdamState", "adam_init", "adam_update", "clip_by_global_norm"]
+__all__ = [
+    "AdamState",
+    "adam_init",
+    "adam_update",
+    "clip_by_global_norm",
+    "sgd_update",
+    "constant_schedule",
+    "cosine_schedule",
+]

@@ -2,9 +2,10 @@
 
 The port of ``repro/optim/adamw.py::adam_init``/``adam_update`` in the
 reference's exact form ``p - lr * (mhat / (sqrt(vhat) + eps) + wd * p)``,
-with an int32 step count cast to float32 for the bias corrections, and
-``clip_by_global_norm`` (DP clipping). ``sgd_update`` waits for the LM
-slice.
+with an int32 step count cast to float32 for the bias corrections,
+``clip_by_global_norm`` (DP clipping and the LM train step) and
+``sgd_update``. As in the reference, a bfloat16 leaf updated with float32
+moments comes back float32.
 """
 from __future__ import annotations
 
@@ -59,9 +60,17 @@ def adam_update(
 
 
 @torch.no_grad()
+def sgd_update(grads: Tree, params: Tree, lr: float) -> Tree:
+    return tree_map(lambda p, g: p - lr * g, params, grads)
+
+
+@torch.no_grad()
 def clip_by_global_norm(grads: Tree, max_norm: float) -> Tree:
     """Scale every leaf by ``min(1, max_norm / max(||grads||_2, 1e-12))``,
     the global norm taken over all leaves in float32."""
     norm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in tree_leaves(grads)))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    return tree_map(lambda g: (g * scale).to(g.dtype), grads)
+    # jnp promotes a bf16 leaf times the float32 scale to float32 before the
+    # cast back; torch would round the 0-d scale to the leaf's dtype first.
+    return tree_map(
+        lambda g: (g.to(torch.promote_types(g.dtype, scale.dtype)) * scale).to(g.dtype), grads)

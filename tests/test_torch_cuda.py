@@ -992,3 +992,109 @@ def test_cuda_two_nccl_ranks_a_card_each(tmp_path):
     ranks = _two_cuda_ranks(tmp_path, {})
     assert [r["collectives"] for r in ranks] == ["nccl", "nccl"]
     assert [r["device"] for r in ranks] == ["0", "1"]
+
+
+# -- the language-model substrate (plain PyTorch: no kernel on this path) ----
+
+def _lm_counts():
+    return (cheb_attn.launches, cheb_attn_backward.launches, flash_attn.launches,
+            poly_attn.launches, wkv_chunked.launches)
+
+
+def _lm_inputs(cfg, device, B=2, S=16, seed=0):
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+         "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.family == "vlm":
+        b["prefix"] = rng.standard_normal((B, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        b["frames"] = rng.standard_normal((B, S // cfg.encoder_ratio, cfg.d_model)).astype(
+            np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def _lm_leaves(obj, prefix=""):
+    if obj is None:
+        return {}
+    if isinstance(obj, torch.Tensor):
+        return {prefix: obj}
+    items = (obj.items() if isinstance(obj, dict) else
+             zip(obj._fields, obj) if hasattr(obj, "_fields") else enumerate(obj))
+    out = {}
+    for k, v in items:
+        out.update(_lm_leaves(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def _lm_close(got, want, rtol, atol):
+    g, w = _lm_leaves(got), _lm_leaves(want)
+    assert sorted(g) == sorted(w)
+    for k in w:
+        a = g[k].detach().cpu()
+        assert a.dtype == w[k].dtype, k
+        torch.testing.assert_close(a, w[k].detach(), rtol=rtol, atol=atol, msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "hymba-1.5b", "yi-6b", "rwkv6-1.6b",
+                                  "paligemma-3b", "seamless-m4t-large-v2",
+                                  "granite-moe-1b-a400m", "dbrx-132b", "qwen2-72b",
+                                  "minitron-8b"])
+def test_cuda_lm_arch_matches_the_cpu(arch):
+    """A reduced arch on the card against the CPU (params drawn once on the
+    CPU): forward through prefill and one decode step at rtol 1e-4 / atol
+    1e-5, the loss too and the grads at rtol 1e-3; no kernel launched."""
+    _needs_card()
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda t: t.cuda(), cpu)
+    before = _lm_counts()
+    out = {}
+    for name, params, dev in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
+        b = _lm_inputs(cfg, dev)
+        pb = {k: v for k, v in b.items() if k != "labels"}
+        pb["tokens"], pb["cache_len"] = b["tokens"][:, :15], 32
+        with torch.no_grad():
+            logits, cache = model.prefill(params, pb)
+            step = model.decode_step(params, cache, b["tokens"][:, 15:])
+        out[name] = ((logits, cache), step, value_and_grad(model.loss, params, b))
+    assert _lm_counts() == before
+    (pf, dec, (loss, parts, grads)) = out["card"]
+    (pf_c, dec_c, (loss_c, parts_c, grads_c)) = out["cpu"]
+    _lm_close(pf, pf_c, 1e-4, 1e-5)
+    _lm_close(dec, dec_c, 1e-4, 1e-5)
+    _lm_close((loss, parts), (loss_c, parts_c), 1e-4, 1e-5)
+    _lm_close(grads, grads_c, 1e-3, 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_bf16_serve_and_train_step():
+    """A bf16 reduced config served and stepped on the card: finite logits,
+    tokens inside the vocab, every param float32 after one step."""
+    _needs_card()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.launch.steps import adam_init_f32, make_train_step
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(), dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    assert all(t.dtype == torch.bfloat16 and t.is_cuda for t in _lm_leaves(params).values())
+    b = _lm_inputs(cfg, "cuda", B=4, S=32)
+    before = _lm_counts()
+    res = serve_lm(model, params, {"tokens": b["tokens"]}, 8, 48)
+    new, opt, loss = make_train_step(cfg)(params, adam_init_f32(params), b)
+    assert _lm_counts() == before
+    assert bool(torch.isfinite(res["prefill_logits"]).all()) and res["tokens"].shape == (4, 8)
+    assert 0 <= int(res["tokens"].min()) and int(res["tokens"].max()) < cfg.vocab_size
+    assert bool(torch.isfinite(loss)) and int(opt.step) == 1
+    assert {t.dtype for t in _lm_leaves(new).values()} == {torch.float32}

@@ -221,7 +221,12 @@ def test_port_imports_neither_jax_nor_repro():
         "       'repro_torch.privacy.shamir', 'repro_torch.privacy.pack_dp',\n"
         "       'repro_torch.privacy.attacks.mia', 'repro_torch.federated.sharded',\n"
         "       'repro_torch.launch.multiprocess', 'repro_torch.telemetry.manifest',\n"
-        "       'repro_torch.telemetry.tracing', 'repro_torch.telemetry.sink']\n"
+        "       'repro_torch.telemetry.tracing', 'repro_torch.telemetry.sink',\n"
+        "       'repro_torch.configs', 'repro_torch.configs.yi_6b', 'repro_torch.models',\n"
+        "       'repro_torch.models.transformer', 'repro_torch.models.encdec',\n"
+        "       'repro_torch.models.moe', 'repro_torch.models.rwkv', 'repro_torch.models.hybrid',\n"
+        "       'repro_torch.data.pipeline', 'repro_torch.optim.schedule',\n"
+        "       'repro_torch.launch.train', 'repro_torch.launch.steps']\n"
         "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
     )
@@ -231,4 +236,4 @@ def test_port_imports_neither_jax_nor_repro():
         cwd=root, env={**os.environ, "PYTHONPATH": str(root / "src")},
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 37
+    assert int(proc.stdout.strip()) >= 87
