@@ -155,6 +155,32 @@ Phases (any failure exits non-zero, and no result line is printed):
    train step (params at rtol 1e-4 / atol 1e-5 where |g| >= 1e-6, else
    within 2 lr).
 
+10. The mesh layer (``repro_torch.launch.{mesh,pspec,sharding,specs,
+   steps,dryrun}``, ``moe_ffn_sharded``): plain PyTorch and collectives, so
+   every kernel's count, zeroed just before each part (in each rank's
+   process, just before each sharded step), must read 0 just after it.
+   10a: ``launch.dryrun.run_one`` for the ten archs x four shapes on 16x16
+   and 2x16x16 (megatron) and 16x16 fsdp, every record ``ok``; the roofline
+   table of the 16x16 records; dbrx-132b ``train_4k``'s per-device argument
+   bytes under megatron, zero1 and fsdp. 10b: a (2, 2) mesh of four ranks
+   sharing the card (``launch`` of ``MESH_WORKER``; gloo over the card's
+   tensors): ``granite-moe-1b-a400m`` at full width, float32, 4 layers,
+   capacity factor E, batch 4 x 128 from the Zipf stream; one train step
+   each under megatron, zero1, fsdp and megatron with 2 microbatches, one
+   prefill and one decode step (megatron), held against the single-device
+   steps on the same card and inputs (the train step with as many
+   microbatches as the sharded step routes the MoE in: data shards times
+   microbatches under megatron and zero1): loss at rtol 1e-5, the gathered
+   params at rtol 1e-5 where |g| >= 1e-6 and within 2 lr elsewhere (PR
+   20's rule), logits and caches at rtol 1e-4 / atol 1e-5; each step's
+   seconds and collective bytes per rank. The same on a (1, 2) mesh at the
+   config's capacity factor (1.25; tokens drop, alike). 10c: the full
+   config (bf16, 24 layers) on the (2, 2) mesh, megatron, batch 4 x 1024
+   (cut only if the four ranks' reckoned bytes exceed ``RANKS_GIB``; the
+   reckoning is printed first): 2 steps, each rank's seconds, peak GiB and
+   bytes by collective per step; finite losses, the first within 1.5 of
+   log(49408), params float32 after the first step.
+
 The second-to-last line is a JSON object describing each kernel
 (``launches``: cheb_attn's over the serving, training, kernel-API, cohort
 and distributed phases, split in ``launches_by_path``, the backward's over
@@ -1979,6 +2005,331 @@ def lm_phase(dev, smi):
           flush=True)
 
 
+# -- phase 10: the mesh layer (no kernel on this path) -----------------------
+
+GRANITE = "granite-moe-1b-a400m"
+MESH_B, MESH_S = 4, 128          # 10b's global batch and sequence
+SCALE_B, SCALE_S = 4, 1024       # 10c's, 9c's batch (cut only if the ranks do not fit)
+SCALE_STEPS = 2
+RANKS_GIB = 72.0                 # of the card's 79.6 GiB: room for five contexts and slack
+
+# One rank of a mesh sharing the card: 10b's checks (``spec["check"]``), then
+# 10c's steps at scale (``spec["scale"]``). Kernel counts are zeroed just
+# before each sharded step and read just after (in this process). Rank 0
+# holds 10b's results against the single-device steps on the same card and
+# inputs and saves its failures; every rank saves its record.
+MESH_WORKER = r"""
+import dataclasses, json, sys, time
+import torch
+from repro_torch.launch import multiprocess as mp
+rank, nproc, collectives = mp.initialize_worker(device="cuda")
+import torch.distributed as dist
+try:
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import make_lm_batches
+    from repro_torch.kernels import flash_attn, poly_attn, wkv_chunked
+    from repro_torch.kernels.cheb_attn import cheb_attn, cheb_attn_backward
+    from repro_torch.launch.mesh import bind_mesh, make_debug_mesh
+    from repro_torch.launch.sharding import gather_tree, map_tree, shard_tree
+    from repro_torch.launch.steps import (LR, adam_init_f32, build_sharded_step,
+                                          make_decode_step, make_prefill_step, make_train_step)
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, spec = sys.argv[1], json.loads(sys.argv[2])
+    dev = torch.device("cuda", torch.cuda.current_device())
+    bm = bind_mesh(make_debug_mesh(*spec["mesh"]))
+    D = bm.shape["data"]
+    counters = (cheb_attn, cheb_attn_backward, flash_attn, poly_attn, wkv_chunked)
+    rec = {"rank": rank, "collectives": collectives, "launches": {}, "fails": [], "errs": {},
+           "steps": {}}
+
+    def timed(label, fn, *args):
+        # one sharded step: launch counts zeroed just before and read just
+        # after, host seconds around it, the collectives' bytes in it
+        for c in counters:
+            c.launches = 0
+        for k in bm.traffic:
+            bm.traffic[k] = {"calls": 0, "bytes": 0}
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        rec["steps"][label] = {"s": time.perf_counter() - t0,
+                               "traffic": {k: dict(v) for k, v in bm.traffic.items()}}
+        rec["launches"][label] = {c.__name__: c.launches for c in counters}
+        return res
+
+    def batches(cfg, b, s):
+        it = make_lm_batches(cfg.vocab_size, b, s, seed=0)
+        return lambda: {k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+
+    def close(label, got, want, rtol, atol):
+        worst = 0.0
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            if a is None:
+                continue
+            if a.shape != b.shape or a.dtype != b.dtype:
+                rec["fails"].append(f"{label}: {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+            elif a.is_floating_point():
+                worst = max(worst, float((a - b).abs().max()))
+                if not torch.allclose(a, b, rtol=rtol, atol=atol):
+                    rec["fails"].append(f"{label}: max abs {float((a - b).abs().max()):.3e}")
+            elif not torch.equal(a, b):
+                rec["fails"].append(f"{label}: integers differ")
+        return worst
+
+    if spec.get("check"):
+        c = spec["check"]
+        cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"), dtype="float32",
+                                  num_layers=c["layers"],
+                                  moe_capacity_factor=c["factor"] or get_config(
+                                      "granite-moe-1b-a400m").moe_capacity_factor)
+        B, S = c["batch"], c["seq"]
+        params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+        batch = batches(cfg, B, S)()
+        for strategy, mb in (("megatron", 1), ("zero1", 1), ("fsdp", 1), ("megatron", 2)):
+            label = f"train {strategy}" + (f" microbatches {mb}" if mb > 1 else "")
+            fn, _, in_sh, out_sh = build_sharded_step(cfg, InputShape("t", S, B, "train"), bm,
+                                                      strategy, microbatches=mb)
+            opt = adam_init_f32(params)
+            p, o, loss = timed(label, fn, shard_tree(params, in_sh[0]),
+                               shard_tree(opt, in_sh[1]), shard_tree(batch, in_sh[2]))
+            p = gather_tree(p, out_sh[0])
+            if rank == 0:
+                # as many microbatches as the sharded step routes the MoE in
+                split = mb * (D if strategy != "fsdp" else 1)
+                wp, wo, wloss = make_train_step(cfg, microbatches=split)(params, opt, batch)
+                rel = abs(float(loss) - float(wloss)) / abs(float(wloss))
+                if rel > 1e-5:
+                    rec["fails"].append(f"{label}: loss {float(loss)!r} vs {float(wloss)!r}")
+                worst = 0.0
+                for a, b, m in zip(tree_leaves(p), tree_leaves(wp), tree_leaves(wo.mu)):
+                    firm = 10 * m.abs() >= 1e-6          # mu = (1 - b1) g after one step
+                    d = (a - b).abs()
+                    worst = max(worst, float(d[firm].max()) if bool(firm.any()) else 0.0)
+                    if not torch.allclose(a[firm], b[firm], rtol=1e-5, atol=1e-5 * LR) \
+                            or float(d.max()) > 2 * LR:
+                        rec["fails"].append(f"{label}: params beyond PR 20's rule")
+                rec["errs"][label] = {"loss": float(loss), "single_device_loss": float(wloss),
+                                      "loss_rel": rel, "params_firm_max_abs": worst,
+                                      "single_device_microbatches": split}
+                del wp, wo
+            del p, o, opt
+            torch.cuda.empty_cache()
+        pb = {"tokens": batch["tokens"]}
+        fn, _, in_sh, out_sh = build_sharded_step(cfg, InputShape("p", S, B, "prefill"), bm)
+        logits, cache = timed("prefill megatron", fn, shard_tree(params, in_sh[0]),
+                              shard_tree(pb, in_sh[1]))
+        cache = gather_tree(cache, out_sh[1])
+        if rank == 0:
+            wl, wc = make_prefill_step(cfg, S)(params, pb)
+            rec["errs"]["prefill megatron"] = {
+                "logits_max_abs": close("prefill logits", logits, wl, 1e-4, 1e-5),
+                "cache_max_abs": close("prefill cache", cache, wc, 1e-4, 1e-5)}
+        n_cache = S + 8
+        fn, _, in_sh, out_sh = build_sharded_step(cfg, InputShape("d", n_cache, B, "decode"), bm)
+        _, cache = make_prefill_step(cfg, n_cache)(params, pb)
+        tok = batch["tokens"][:, -1:]
+        logits, new = timed("decode megatron", fn, shard_tree(params, in_sh[0]),
+                            shard_tree(cache, in_sh[1]), shard_tree(tok, in_sh[2]))
+        logits, new = gather_tree(logits, out_sh[0]), gather_tree(new, out_sh[1])
+        if rank == 0:
+            wl, wc = make_decode_step(cfg)(params, cache, tok)
+            rec["errs"]["decode megatron"] = {
+                "logits_max_abs": close("decode logits", logits, wl, 1e-4, 1e-5),
+                "cache_max_abs": close("decode cache", new, wc, 1e-4, 1e-5)}
+        del params, cache, logits, new
+        torch.cuda.empty_cache()
+
+    if spec.get("scale"):
+        c = spec["scale"]
+        cfg = get_config("granite-moe-1b-a400m")
+        B, S = c["batch"], c["seq"]
+        fn, args, in_sh, out_sh = build_sharded_step(cfg, InputShape("t", S, B, "train"), bm)
+        full = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+        params = map_tree(lambda x: x.clone(), shard_tree(full, in_sh[0]))
+        del full
+        opt = map_tree(lambda m, sh: torch.zeros(bm.shard(m, sh.spec).shape, dtype=m.dtype,
+                                                 device=dev), args[1], in_sh[1])
+        torch.cuda.empty_cache()
+        nxt = batches(cfg, B, S)
+        losses = []
+        for i in range(c["steps"]):
+            batch = shard_tree(nxt(), in_sh[2])
+            torch.cuda.reset_peak_memory_stats()
+            params, opt, loss = timed(f"scale step {i}", fn, params, opt, batch)
+            rec["steps"][f"scale step {i}"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            losses.append(float(loss))
+        rec["scale"] = {"seq": S, "batch": B, "losses": losses,
+                        "dtypes": sorted({str(t.dtype) for t in tree_leaves(params)})}
+    torch.save(rec, f"{out}/rank{rank}.pt")
+    print(f"rank {rank}: " + json.dumps({k: rec[k] for k in ("rank", "collectives", "steps",
+                                                               "fails")}), flush=True)
+finally:
+    if dist.is_initialized():
+        dist.destroy_process_group()
+"""
+
+
+def run_mesh(label, mesh, spec):
+    """``MESH_WORKER`` on ``mesh`` (data, model): one process a rank, all on
+    this card through ``launch``. Fails unless every rank exits 0; returns
+    the ranks' records and the wall seconds with start-up."""
+    import tempfile
+
+    from repro_torch.launch import multiprocess as mp
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(HERE, "src") + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    n = mesh[0] * mesh[1]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        code = mp.launch([sys.executable, "-c", MESH_WORKER, tmp,
+                          json.dumps({"mesh": list(mesh), **spec})],
+                         processes=n, devices_per_process=1, timeout=400, env=env)
+        wall = time.perf_counter() - t0
+        if code != 0:
+            fail(f"{label}: a rank exited {code}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(n)]
+    rule = mp.collectives_for("cuda", n)
+    for r in ranks:
+        if r["collectives"] != rule:
+            fail(f"{label}: rank {r['rank']} joined with {r['collectives']}, not {rule}")
+        for part, got in r["launches"].items():
+            if any(got.values()):
+                fail(f"{label} {part}: rank {r['rank']} launched a kernel: {got}")
+    print(f"{label}: {n} ranks on {torch.cuda.device_count()} card(s), collectives {rule}, "
+          f"wall {wall:.1f} s with start-up; every kernel count 0 in every step on every rank",
+          flush=True)
+    return ranks, wall
+
+
+def print_mesh_checks(label, ranks):
+    r0 = ranks[0]
+    for part, errs in r0["errs"].items():
+        secs = [round(r["steps"][part]["s"], 3) for r in ranks]
+        traffic = r0["steps"][part]["traffic"]
+        print(f"{label} {part}: {errs}; s per rank {secs}; rank 0 collectives {traffic}",
+              flush=True)
+    if r0["fails"]:
+        fail(f"{label}: the sharded steps disagree with the single-device ones: "
+             f"{r0['fails'][:8]}")
+
+
+def reckon_scale_gib(cfg, batch, seq, mesh) -> dict:
+    """10c's peak bytes on one rank of ``mesh`` (megatron), reckoned from the
+    placements before the run, float32 after step 1: the larger of the
+    backward's end (the param and moment blocks, the gathered leaves beyond
+    the rank's own expert block, every grad the rank computes, and the
+    largest activations: logits, log-softmax and their grad, the remat
+    stash, one layer's MoE capacity buffers) and the update's end (old and
+    new param and moment blocks; the update frees each grad as it goes)."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.dryrun import per_device_bytes
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import ADAM_CHUNK_BYTES, build_sharded_step
+
+    m = Mesh(("data", "model"), mesh)
+    fn, args, in_sh, out_sh = build_sharded_step(cfg, InputShape("t", seq, batch, "train"), m)
+    state = per_device_bytes(fn.out_specs[:2], out_sh[:2])       # float32 params + moments
+    leaves = list(zip(tree_leaves(args[0]), fn.kept))
+    gathered = sum(4 * x.numel() for x, k in leaves if not k)
+    own_experts = sum(4 * x.numel() // mesh[1] for x, k in leaves if k)
+    rows = batch // mesh[0] * seq
+    C = int(-(-rows * cfg.experts_per_token // cfg.num_experts) * cfg.moe_capacity_factor)
+    act = (3 * rows * cfg.padded_vocab() * 4 + cfg.num_layers * rows * cfg.d_model * 4
+           + 4 * cfg.num_experts // mesh[1] * C * max(cfg.d_model, cfg.d_ff) * 4)
+    backward = state + gathered + (gathered + own_experts) + act
+    # the update's temporaries: a few of its slices (launch/steps.py)
+    temps = 6 * ADAM_CHUNK_BYTES
+    return {"state": state, "gathered": gathered, "grads": gathered + own_experts,
+            "activations": act, "backward_end": backward, "update_end": 2 * state + temps,
+            "total": max(backward, 2 * state + temps)}
+
+
+def mesh_phase(smi):
+    """Phase 10: the mesh layer (see the module docstring)."""
+    from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, get_config
+    from repro_torch.analysis.report import roofline_table
+    from repro_torch.launch.dryrun import run_one
+
+    # -- 10a: the analytic dry-run -----------------------------------------
+    t0 = time.perf_counter()
+    zero_kernel_counts()
+    recs = {}
+    for tag, multi, strategy in (("16x16", False, "megatron"), ("2x16x16", True, "megatron"),
+                                 ("16x16 fsdp", False, "fsdp")):
+        recs[tag] = [run_one(a, s, multi, strategy) for a in ASSIGNED_ARCHS for s in INPUT_SHAPES]
+        bad = [(r["arch"], r["shape"], r.get("error")) for r in recs[tag] if r["status"] != "ok"]
+        if bad or len(recs[tag]) != 40:
+            fail(f"10a {tag}: records not ok: {bad[:4]}")
+    dbrx = {s: run_one("dbrx-132b", "train_4k", False, s)["memory_analysis"]
+            for s in ("megatron", "zero1", "fsdp")}
+    check_no_kernel_launched("10a (dry-run)")
+    print(f"10a dry-run: 120 records ok (10 archs x 4 shapes on 16x16 and 2x16x16, megatron; "
+          f"16x16 fsdp) in {time.perf_counter() - t0:.1f} s; dbrx-132b train_4k on 16x16, "
+          "per-device argument bytes: " + ", ".join(
+              f"{s} {m['argument_size_in_bytes']:,} ({m['argument_size_in_bytes'] / 2**30:.2f} "
+              f"GiB)" for s, m in dbrx.items()), flush=True)
+    print("10a roofline, 16x16 megatron (H100 constants; T_collective needs XLA):", flush=True)
+    print(roofline_table(sorted(recs["16x16"], key=lambda r: (r["arch"], r["shape"]))),
+          flush=True)
+    t10a = time.perf_counter() - t0
+
+    # -- 10c's reckoning, before any rank starts ----------------------------
+    cfg = get_config(GRANITE)
+    seq = SCALE_S
+    while True:
+        rk = reckon_scale_gib(cfg, SCALE_B, seq, (2, 2))
+        if 4 * rk["total"] / 2**30 <= RANKS_GIB or seq <= 128:
+            break
+        seq //= 2
+    print(f"10c reckoning, {GRANITE} full config, (2, 2) megatron, batch {SCALE_B} x seq {seq}: "
+          "per rank " + ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in rk.items())
+          + f"; four ranks {4 * rk['total'] / 2**30:.2f} GiB of {RANKS_GIB} GiB"
+          + ("" if seq == SCALE_S else f" (sequence cut from {SCALE_S} to {seq} to fit)"),
+          flush=True)
+    if 4 * rk["total"] / 2**30 > RANKS_GIB:
+        fail("10c: four ranks do not fit on the card even at sequence 128")
+
+    # -- 10b + 10c on a (2, 2) mesh, 10b on a (1, 2) mesh --------------------
+    t0 = time.perf_counter()
+    check = {"layers": 4, "batch": MESH_B, "seq": MESH_S}
+    ranks, _ = run_mesh("10b+10c (2, 2)", (2, 2), {
+        "check": {**check, "factor": cfg.num_experts},
+        "scale": {"batch": SCALE_B, "seq": seq, "steps": SCALE_STEPS}})
+    print_mesh_checks(f"10b (2, 2) {GRANITE} float32, 4 layers, capacity factor "
+                      f"{cfg.num_experts}, batch {MESH_B} x {MESH_S}:", ranks)
+    for i in range(SCALE_STEPS):
+        part = f"scale step {i}"
+        print(f"10c {GRANITE} bf16, 24 layers, (2, 2) megatron, batch {SCALE_B} x {seq}, step {i}"
+              f": s per rank {[round(r['steps'][part]['s'], 3) for r in ranks]}, peak GiB per "
+              f"rank {[round(r['steps'][part]['peak_gib'], 2) for r in ranks]}, collectives per "
+              f"rank {[r['steps'][part]['traffic'] for r in ranks]}; {smi}", flush=True)
+    sc = ranks[0]["scale"]
+    print(f"10c losses {sc['losses']}, param dtypes after {SCALE_STEPS} steps {sc['dtypes']}",
+          flush=True)
+    if not all(np.isfinite(sc["losses"])) or abs(sc["losses"][0] - np.log(cfg.padded_vocab())) \
+            >= 1.5 or sc["dtypes"] != ["torch.float32"]:
+        fail("10c: the losses are not finite, the first is not near log(vocab), or the params "
+             "are not float32 after the first step")
+    t22 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks, _ = run_mesh("10b (1, 2)", (1, 2), {"check": {**check, "factor": None}})
+    print_mesh_checks(f"10b (1, 2) {GRANITE} float32, 4 layers, capacity factor "
+                      f"{cfg.moe_capacity_factor}, batch {MESH_B} x {MESH_S}:", ranks)
+    t12 = time.perf_counter() - t0
+    print(f"phase 10 parts: 10a {t10a:.1f}s, 10b+10c (2, 2) {t22:.1f}s, 10b (1, 2) {t12:.1f}s; "
+          f"{smi}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -2319,6 +2670,12 @@ def main() -> None:
     t0 = time.perf_counter()
     lm_phase(dev, nvidia_smi())
     print(f"language-model phase: {time.perf_counter() - t0:.1f}s")
+
+    # -- phase 10: the mesh layer (no kernel on this path) -----------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_phase(nvidia_smi())
+    print(f"mesh phase: {time.perf_counter() - t0:.1f}s")
     print(f"total {time.perf_counter() - t_start:.1f}s")
 
     print(f"gpu: {nvidia_smi()}")

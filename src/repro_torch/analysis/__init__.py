@@ -1,5 +1,6 @@
 """repro_torch.analysis — the paper's closed-form error bounds (a copy of
-``repro/analysis/error_bounds.py``)."""
+``repro/analysis/error_bounds.py``), and in ``hlo`` and ``report`` the
+dry-run's roofline arithmetic and table."""
 from repro_torch.analysis.error_bounds import (
     series_envelope,
     thm3_coefficient_bound,

@@ -37,11 +37,14 @@ def materialize(spec: Any, generator: torch.Generator, dtype: torch.dtype,
                 device: torch.device, lead: Tuple[int, ...] = ()) -> Any:
     """Tensors on ``device`` for a spec tree, each with the leading axes
     ``lead`` (the reference's ``vmap``-stacked layer or expert axes). Draws
-    come from ``generator`` on its own device, one leading slice at a time."""
+    come from ``generator`` on its own device, one leading slice at a time;
+    on the ``meta`` device nothing is drawn or allocated."""
     n = int(np.prod(lead)) if lead else 1
 
     def make(leaf):
         out = torch.empty(lead + tuple(leaf.shape), dtype=dtype, device=device)
+        if out.is_meta:             # shapes and dtypes only (launch/specs.py)
+            return out
         flat = out.view((n,) + tuple(leaf.shape))
         if isinstance(leaf, Fill):
             value = torch.as_tensor(np.asarray(leaf.value, np.float32), device=device)

@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._tree import tree_leaves, tree_unflatten
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.chebyshev import attention_series
+from repro_torch.launch import pspec
 from repro_torch.models import hybrid as hyb
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.attention import (
@@ -232,11 +233,16 @@ def lm_forward(
 
 
 def next_token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean cross entropy over positions with ``labels >= 0``."""
+    """Mean cross entropy over positions with ``labels >= 0``, over the
+    whole batch when a sharded step splits its rows over ranks."""
     mask = (labels >= 0).to(torch.float32)
     logp = F.log_softmax(logits, dim=-1)
     tgt = torch.take_along_dim(logp, torch.clamp(labels, min=0).long()[..., None], dim=-1)[..., 0]
-    return -torch.sum(tgt * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    num, den = torch.sum(tgt * mask), torch.sum(mask)
+    bm, axes = pspec.split()
+    if bm is not None and axes:
+        num, den = bm.psum(num, axes), bm.all_reduce(den, axes)
+    return -num / torch.clamp(den, min=1.0)
 
 
 def lm_loss(

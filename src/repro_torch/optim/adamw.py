@@ -65,10 +65,12 @@ def sgd_update(grads: Tree, params: Tree, lr: float) -> Tree:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Tree, max_norm: float) -> Tree:
+def clip_by_global_norm(grads: Tree, max_norm: float, norm: torch.Tensor = None) -> Tree:
     """Scale every leaf by ``min(1, max_norm / max(||grads||_2, 1e-12))``,
-    the global norm taken over all leaves in float32."""
-    norm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in tree_leaves(grads)))
+    the global norm taken over all leaves in float32 (or ``norm``, when the
+    caller reckons it: a sharded step sums its blocks' squares over ranks)."""
+    if norm is None:
+        norm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in tree_leaves(grads)))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     # jnp promotes a bf16 leaf times the float32 scale to float32 before the
     # cast back; torch would round the 0-d scale to the leaf's dtype first.
