@@ -181,6 +181,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    bytes by collective per step; finite losses, the first within 1.5 of
    log(49408), params float32 after the first step.
 
+11. The reference API and the paper's experiment drivers: plain PyTorch
+   and the Trainer's ``direct``, ``exact`` and ``vector`` engines and GCN,
+   so every kernel's count, zeroed just before each part, must read 0 just
+   after it. ``reset_dense_view_count()`` runs before phase 3, and
+   ``dense_view_count()`` after phase 10 must read 0: every graph path up
+   to ``sbm_1m`` stays on the CSR and neighbour lists. 11a: ``make_sbm(
+   "sbm_100k").adj`` raises ``DenseAdjacencyError``; on ``cora_like`` at
+   ``FedGATConfig()`` widths the dense ``gat_forward`` against its
+   neighbour-list form (rtol 1e-5 / atol 1e-5, tests/test_gat.py:33), the
+   dense ``gcn_forward`` on ``normalized_adjacency`` against
+   ``gcn_forward_nbr`` (atol 1e-5, tests/test_bucketed_kernel.py:108),
+   ``moments_direct`` on the card against a CPU copy (rtol 1e-5 / atol
+   1e-6). 11b: each driver that ``benchmarks_torch.run``'s discovery finds
+   runs its ``fast`` sweep on the card (``run(fast=True, device=...)``): its
+   rows, local steps (calls of the trainer's ``grad_of``), seconds and
+   ``derived`` line; thm2's and fig3's rows equal to the CPU's, thm35's
+   and stability's within rtol 1e-4 / atol 1e-6 of the CPU's (``err_power``
+   rtol 1e-3 where finite, flags equal), every accuracy finite and in
+   [0, 1].
+
 The second-to-last line is a JSON object describing each kernel
 (``launches``: cheb_attn's over the serving, training, kernel-API, cohort
 and distributed phases, split in ``launches_by_path``, the backward's over
@@ -2330,12 +2350,156 @@ def mesh_phase(smi):
           f"{smi}", flush=True)
 
 
+# -- phase 11: the reference API and the paper's experiment drivers ---------
+# Plain PyTorch (the dense forms, the moments) and the drivers' Trainer runs
+# through the ``direct``, ``exact`` and ``vector`` engines and GCN: no kernel
+# is on this path, so every count, zeroed just before each part, reads 0
+# just after it.
+
+PAPER_RTOL, PAPER_ATOL = 1e-4, 1e-6   # the theorem drivers' float32 maxima, card vs CPU
+POWER_RTOL = 1e-3                     # err_power at high degree (monomial cancellation)
+DENSE_TOL = 1e-5                      # tests/test_gat.py:33, tests/test_bucketed_kernel.py:108
+MOMENT_RTOL, MOMENT_ATOL = 1e-5, 1e-6
+
+
+def rows_close(label, got, want):
+    """The theorem drivers' rows on the card against the CPU's: keys and
+    order equal, flags and degrees equal, ``err_power`` finite alike and at
+    rtol 1e-3 where finite, every other value at rtol 1e-4 / atol 1e-6."""
+    worst = 0.0
+    if [list(r) for r in got] != [list(r) for r in want]:
+        fail(f"{label}: the card's rows have other keys than the CPU's")
+    for a, b in zip(got, want):
+        for k, w in b.items():
+            v = a[k]
+            if isinstance(w, bool) or k == "degree":
+                ok = v == w
+            elif k == "err_power":
+                ok = np.isfinite(v) == np.isfinite(w) and (
+                    not np.isfinite(w) or abs(v - w) <= POWER_RTOL * abs(w))
+            else:
+                ok = abs(v - w) <= PAPER_ATOL + PAPER_RTOL * abs(w)
+            if isinstance(w, float) and np.isfinite(w) and np.isfinite(v):
+                worst = max(worst, abs(v - w))
+            if not ok:
+                fail(f"{label}: {k} on the card {v!r} against the CPU's {w!r}")
+    return worst
+
+
+def paper_phase(dev, smi):
+    """Phase 11: the reference API the port took over last (11a) and the
+    eight paper drivers of ``benchmarks_torch`` at their ``fast`` sweeps
+    (11b)."""
+    from benchmarks_torch.run import discover_benches
+    from repro_torch._device import sync
+    from repro_torch.core import (FedGATConfig, gat_forward, gcn_forward, init_gcn_params,
+                                  init_params, moments_direct, normalized_adjacency)
+    from repro_torch.core.fedgat_model import graph_tensors
+    from repro_torch.core.gcn import gcn_forward_nbr, normalized_nbr_coeffs
+    from repro_torch.core.poly_attention import edge_scores, head_projections
+    from repro_torch.federated import trainer as fed_trainer
+    from repro_torch.graphs import (DenseAdjacencyError, dense_view_count, make_cora_like,
+                                    make_sbm)
+
+    # -- 11a: the dense forms and the moments on the card ------------------
+    t0 = time.perf_counter()
+    zero_kernel_counts()
+    try:
+        make_sbm("sbm_100k", seed=SEED).adj
+        fail("11a: sbm_100k's dense view did not raise DenseAdjacencyError")
+    except DenseAdjacencyError as err:
+        print(f"11a sbm_100k dense view refused: {err}", flush=True)
+    g = make_cora_like("cora_like", seed=SEED)
+    cfg = FedGATConfig()
+    params = init_params(torch.Generator().manual_seed(SEED), g.feature_dim, g.num_classes,
+                         cfg, device=dev)
+    h, idx, mask = graph_tensors(g, dev)
+    adj = g.adj
+    with torch.no_grad():
+        dense = gat_forward(params, h, torch.as_tensor(adj, device=dev))
+        nbr = gat_forward(params, h, None, use_nbr=True, nbr_idx=idx, nbr_mask=mask)
+        gparams = init_gcn_params(torch.Generator().manual_seed(SEED), g.feature_dim, 16,
+                                  g.num_classes, device=dev)
+        gcn_dense = gcn_forward(gparams, h, torch.as_tensor(normalized_adjacency(adj),
+                                                            device=dev))
+        coef = torch.as_tensor(normalized_nbr_coeffs(g.nbr_idx, g.nbr_mask), device=dev)
+        gcn_nbr = gcn_forward_nbr(gparams, h, idx, coef)
+        b1, b2 = head_projections(params[0])
+        x = edge_scores(b1, b2, h, idx)
+        E, F = moments_direct(x, h[idx], mask, cfg.degree)
+        E_cpu, F_cpu = moments_direct(x.cpu(), h[idx].cpu(), mask.cpu(), cfg.degree)
+    check_no_kernel_launched("11a (dense forms, moments)")
+    errs = {
+        "gat dense vs nbr": (dense, nbr, DENSE_TOL, DENSE_TOL),
+        "gcn dense vs nbr": (gcn_dense, gcn_nbr, 0.0, DENSE_TOL),
+        "moments E card vs CPU": (E.cpu(), E_cpu, MOMENT_RTOL, MOMENT_ATOL),
+        "moments F card vs CPU": (F.cpu(), F_cpu, MOMENT_RTOL, MOMENT_ATOL),
+    }
+    for label, (got, want, rtol, atol) in errs.items():
+        err = float((got - want).abs().max())
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(got, want, rtol=rtol, atol=atol)
+        print(f"11a cora_like N={g.num_nodes} B={g.max_degree} {label}: max_abs_err {err:.3e} "
+              f"allclose(rtol={rtol},atol={atol})={ok}", flush=True)
+        if not ok:
+            fail(f"11a: {label} disagree")
+    if dense_view_count() != 1:
+        fail(f"11a: {dense_view_count()} dense views (want the one of cora_like)")
+    t11a = time.perf_counter() - t0
+
+    # -- 11b: the paper drivers, fast sweeps, on the card -------------------
+    benches = discover_benches()
+    names = [name for name, _ in benches]
+    print(f"11b drivers discovered: {names}", flush=True)
+    if len(names) != 8:
+        fail(f"11b: discovered {len(names)} drivers, want 8")
+    steps = {"n": 0}
+    grad_of = fed_trainer.grad_of
+
+    def counted_grad_of(*args, **kwargs):     # one call a local (or centralised) step
+        steps["n"] += 1
+        return grad_of(*args, **kwargs)
+
+    t0 = time.perf_counter()
+    total_steps, seconds = 0, {}
+    fed_trainer.grad_of = counted_grad_of
+    try:
+        for name, mod in benches:
+            zero_kernel_counts()
+            steps["n"] = 0
+            t1 = time.perf_counter()
+            rows = mod.run(fast=True, device=dev)
+            sync(dev)
+            seconds[name] = time.perf_counter() - t1
+            check_no_kernel_launched(f"11b {name}")
+            total_steps += steps["n"]
+            print(f"11b {name}: {len(rows)} rows, {steps['n']} local steps, "
+                  f"{seconds[name]:.2f} s; {mod.derived(rows)}; {smi}", flush=True)
+            accs = [r[k] for r in rows for k in ("acc", "std") if k in r]
+            if not all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs):
+                fail(f"11b {name}: an accuracy is not finite or not in [0, 1]")
+            if name in ("thm2_cheb_error", "fig3_comm"):
+                host = mod.run(fast=True, device="cpu")
+                if rows != host:
+                    fail(f"11b {name}: the card's rows differ from the CPU's")
+                print(f"11b {name}: rows equal to the CPU's", flush=True)
+            elif name in ("thm35_error_prop", "stability_basis"):
+                worst = rows_close(f"11b {name}", rows, mod.run(fast=True, device="cpu"))
+                print(f"11b {name}: card vs CPU max abs diff {worst:.3e} (rtol {PAPER_RTOL}, "
+                      f"atol {PAPER_ATOL}; err_power rtol {POWER_RTOL})", flush=True)
+    finally:
+        fed_trainer.grad_of = grad_of
+    print(f"phase 11 parts: 11a {t11a:.1f}s, 11b {time.perf_counter() - t0:.1f}s "
+          f"({total_steps} local steps; " + ", ".join(f"{k} {v:.1f}s" for k, v in seconds.items())
+          + f"); {smi}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
     from repro_torch.core import FedGATConfig, get_engine, init_params, layered_forward
     from repro_torch.core.fedgat_model import graph_tensors
-    from repro_torch.graphs import make_cora_like, make_sbm
+    from repro_torch.graphs import (dense_view_count, make_cora_like, make_sbm,
+                                    reset_dense_view_count)
     from repro_torch.federated import FederatedConfig, run_federated
     from repro_torch.federated import trainer as fed_trainer
     from repro_torch.kernels import _build
@@ -2509,6 +2673,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- phase 3: serving through the kernel engine ------------------------
+    reset_dense_view_count()
     server = GraphInferenceServer(params, cfg, g, method="fedgat", num_clients=4,
                                   engine="kernel", device=dev)
     rng = np.random.default_rng(SEED)
@@ -2676,6 +2841,16 @@ def main() -> None:
     t0 = time.perf_counter()
     mesh_phase(nvidia_smi())
     print(f"mesh phase: {time.perf_counter() - t0:.1f}s")
+    views = dense_view_count()
+    print(f"dense (N, N) adjacency views in phases 3-10: {views} (want 0)", flush=True)
+    if views:
+        fail("a path of phases 3-10 materialised a dense adjacency")
+
+    # -- phase 11: the reference API and the paper drivers (no kernel) -----
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paper_phase(dev, nvidia_smi())
+    print(f"paper phase: {time.perf_counter() - t0:.1f}s")
     print(f"total {time.perf_counter() - t_start:.1f}s")
 
     print(f"gpu: {nvidia_smi()}")

@@ -23,8 +23,9 @@ Both evaluation bases are implemented:
 
 All coefficient computation is static numpy (coefficients are constants with
 respect to training), copied verbatim from ``repro/core/chebyshev.py`` so the
-coefficients are bit-identical; the evaluation helpers are torch loops in the
-reference's order.
+coefficients are bit-identical, as are Theorem 2's bound and the measured
+sup-norm error (``theorem2_bound``, ``empirical_sup_error``); the evaluation
+helpers are torch loops in the reference's order.
 """
 from __future__ import annotations
 
@@ -140,3 +141,28 @@ def eval_chebyshev(c, x: torch.Tensor, domain: Tuple[float, float]) -> torch.Ten
     for cn in c[1:].flip(0):
         b1, b2 = 2.0 * t * b1 - b2 + cn, b1
     return t * b1 - b2 + c[0]
+
+
+# ---------------------------------------------------------------------------
+# Theorem 2 — approximation error bound (numpy, as the reference)
+# ---------------------------------------------------------------------------
+
+def theorem2_bound(V: float, k: int, p: int) -> float:
+    """||s_p(f) - f||_inf <= 2V / (pi * k * (p-k)^k)  for p > k."""
+    if p <= k:
+        raise ValueError("bound requires p > k")
+    return 2.0 * V / (np.pi * k * float(p - k) ** k)
+
+
+def empirical_sup_error(
+    fn: Callable[[np.ndarray], np.ndarray],
+    coeffs_cheb: np.ndarray,
+    domain: Tuple[float, float],
+    num: int = 4001,
+) -> float:
+    """Measured sup-norm error of the truncated Chebyshev series."""
+    lo, hi = domain
+    x = np.linspace(lo, hi, num)
+    t = (2 * x - (lo + hi)) / (hi - lo)
+    approx = np.polynomial.chebyshev.chebval(t, coeffs_cheb)
+    return float(np.max(np.abs(approx - fn(x))))

@@ -48,6 +48,12 @@ def register_engine(name: str) -> Callable[[Type["Engine"]], Type["Engine"]]:
     return decorator
 
 
+def unregister_engine(name: str) -> None:
+    """Remove an engine from the registry (no-op if absent). Intended for
+    tests and plugin teardown."""
+    _ENGINES.pop(name, None)
+
+
 def registered_engines() -> List[str]:
     """Names of all registered engines, sorted."""
     return sorted(_ENGINES)

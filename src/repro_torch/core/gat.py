@@ -1,9 +1,11 @@
-"""Graph Attention Network layers — paper Eq. (1)-(3), neighbour-list form.
+"""Graph Attention Network layers — paper Eq. (1)-(3).
 
-The port of ``repro/core/gat.py`` without the dense forms: the exact GAT
-layer over padded neighbour lists (layers l > 1 of every engine, and the
-whole of the ``exact`` engine), its activations, parameter init, the
-masked cross-entropy loss and the masked accuracy metric.
+The port of ``repro/core/gat.py``: the exact GAT layer in its two
+equivalent forms, ``gat_layer_dense`` over a dense (N, N) adjacency (the
+oracle for small graphs) and ``gat_layer_nbr`` over padded neighbour lists
+(layers l > 1 of every engine, and the whole of the ``exact`` engine), the
+two-layer ``gat_forward`` over either, its activations, parameter init,
+the masked cross-entropy loss and the masked accuracy metric.
 
 Parameters keep the reference's layout: one mapping per layer with
 ``W (H, d_in, d_out)``, ``a1 (H, d_out)`` and ``a2 (H, d_out)``; a model's
@@ -12,7 +14,7 @@ parameters are an ``nn.ModuleList`` of ``nn.ParameterDict``s.
 from __future__ import annotations
 
 import math
-from typing import Mapping
+from typing import Mapping, Optional, Sequence
 
 import torch
 from torch import nn
@@ -59,6 +61,23 @@ def init_gat_params(
     ])
 
 
+def gat_layer_dense(
+    params: Mapping[str, torch.Tensor], h: torch.Tensor, adj: torch.Tensor, concat: bool
+) -> torch.Tensor:
+    """h: (N, d_in), adj: (N, N) bool. Returns (N, heads*d_out) or (N, d_out)."""
+    z = torch.einsum("nd,hdo->hno", h, params["W"])          # (H, N, d_out)
+    s1 = torch.einsum("hno,ho->hn", z, params["a1"])         # score of dst i
+    s2 = torch.einsum("hno,ho->hn", z, params["a2"])         # score of src j
+    logits = leaky_relu(s1[:, :, None] + s2[:, None, :])     # (H, N, N), ij
+    logits = torch.where(adj[None], logits, -torch.inf)
+    alpha = torch.softmax(logits, dim=-1)
+    alpha = torch.where(adj[None], alpha, 0.0)
+    out = torch.einsum("hnm,hmo->hno", alpha, z)             # (H, N, d_out)
+    if concat:
+        return out.permute(1, 0, 2).reshape(h.shape[0], -1)
+    return out.mean(dim=0)
+
+
 def gat_layer_nbr(
     params: Mapping[str, torch.Tensor],
     h: torch.Tensor,
@@ -79,6 +98,25 @@ def gat_layer_nbr(
     if concat:
         return out.permute(1, 0, 2).reshape(h.shape[0], -1)
     return out.mean(dim=0)
+
+
+def gat_forward(
+    params: Sequence[Mapping[str, torch.Tensor]], h: torch.Tensor,
+    adj: Optional[torch.Tensor], *, use_nbr: bool = False,
+    nbr_idx: Optional[torch.Tensor] = None, nbr_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Two-layer GAT: ELU between layers, raw logits out. Over the dense
+    ``adj`` by default, over ``nbr_idx``/``nbr_mask`` with ``use_nbr``."""
+    x = h
+    for li, p in enumerate(params):
+        last = li == len(params) - 1
+        if use_nbr:
+            x = gat_layer_nbr(p, x, nbr_idx, nbr_mask, not last)
+        else:
+            x = gat_layer_dense(p, x, adj, not last)
+        if not last:
+            x = elu(x)
+    return x
 
 
 def masked_cross_entropy(

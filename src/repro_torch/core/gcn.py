@@ -1,10 +1,11 @@
-"""Graph Convolutional Network over padded neighbour lists (the ``fedgcn``
-method of the federated Trainer and the centralised GCN baseline).
+"""Graph Convolutional Network (Kipf & Welling 2017): the ``fedgcn`` method
+of the federated Trainer and the centralised GCN baseline.
 
-The port of the neighbour-list half of ``repro/core/gcn.py``:
+The port of ``repro/core/gcn.py``: ``normalized_adjacency`` and
 ``normalized_nbr_coeffs`` (numpy, identical), ``init_gcn_params`` (the same
-distribution from a ``torch.Generator``) and ``gcn_forward_nbr``. The dense
-forms are left out.
+distribution from a ``torch.Generator``), ``gcn_forward`` over the dense
+normalised adjacency and ``gcn_forward_nbr`` over padded neighbour lists,
+which gives the same output without any (N, N) array.
 """
 from __future__ import annotations
 
@@ -17,6 +18,14 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 
 Params = Dict[str, torch.Tensor]
+
+
+def normalized_adjacency(adj: np.ndarray) -> np.ndarray:
+    """D^{-1/2} (A + I already folded) D^{-1/2}, dense float32."""
+    a = adj.astype(np.float32)
+    deg = a.sum(axis=1)
+    d_inv_sqrt = 1.0 / np.sqrt(np.maximum(deg, 1.0))
+    return a * d_inv_sqrt[:, None] * d_inv_sqrt[None, :]
 
 
 def normalized_nbr_coeffs(nbr_idx: np.ndarray, nbr_mask: np.ndarray) -> np.ndarray:
@@ -43,6 +52,18 @@ def init_gcn_params(
         return ((2.0 * u - 1.0) * lim).to(dev)
 
     return [{"W": uniform(d_in, hidden)}, {"W": uniform(hidden, num_classes)}]
+
+
+def gcn_forward(
+    params: Sequence[Params], h: torch.Tensor, a_norm: torch.Tensor
+) -> torch.Tensor:
+    """GCN forward over the dense normalised adjacency, ReLU between layers."""
+    x = h
+    for li, p in enumerate(params):
+        x = a_norm @ (x @ p["W"])
+        if li < len(params) - 1:
+            x = torch.relu(x)
+    return x
 
 
 def gcn_forward_nbr(

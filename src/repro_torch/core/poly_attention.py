@@ -2,8 +2,9 @@
 
 The port of ``repro/core/poly_attention.py``: ``e_ij ~= series(x_ij)`` with
 ``x_ij = b1.h_i + b2.h_j`` and the update Eq. (7), computed directly from
-per-edge quantities with no pack. It is the mathematical oracle the
-``kernel`` engine is held against.
+per-edge quantities with no pack, and the moments ``E^(n)``, ``F^(n)`` of
+Eq. (8) (``moments_direct``). It is the mathematical oracle the ``kernel``
+engine is held against.
 """
 from __future__ import annotations
 
@@ -40,6 +41,25 @@ def eval_series(
     if basis == "chebyshev":
         return eval_chebyshev(coeffs, x, domain)
     raise ValueError(f"unknown basis {basis!r}")
+
+
+def moments_direct(
+    x: torch.Tensor, h_nb: torch.Tensor, mask: torch.Tensor, max_n: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """E^(n) = sum_j x_ij^n h_j, F^(n) = sum_j x_ij^n (paper Eq. 8).
+
+    x: (..., B), h_nb: (..., B, d), mask: (..., B) ->
+    E: (max_n+1, ..., d), F: (max_n+1, ...). The reference scans over n;
+    this loop carries the same power ``xp`` and stacks the moments.
+    """
+    m = mask.to(x.dtype)
+    xp = torch.ones_like(x)
+    E, F = [], []
+    for _ in range(max_n + 1):
+        E.append(torch.einsum("...b,...bd->...d", xp * m, h_nb))
+        F.append(torch.sum(xp * m, dim=-1))
+        xp = xp * x
+    return torch.stack(E), torch.stack(F)
 
 
 def poly_gat_layer(

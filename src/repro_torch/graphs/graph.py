@@ -1,18 +1,69 @@
 """Graph container for the port — CSR-first, numpy only.
 
-The serving slice's copy of ``repro/graphs/graph.py``: the canonical
-encoding is CSR ``indptr``/``indices`` (O(N + E)) plus the padded neighbour
-lists ``nbr_idx``/``nbr_mask`` (N, B) that the layers and the CUDA kernel
-read. ``B`` is the padded max degree; self-loops are part of every
-neighbourhood. The lazily derived dense (N, N) view of the reference is not
-carried over: nothing in the port reads it. ``subgraph`` serves the
-federated partition's per-client extraction.
+The port's copy of ``repro/graphs/graph.py``: the canonical encoding is CSR
+``indptr``/``indices`` (O(N + E)) plus the padded neighbour lists
+``nbr_idx``/``nbr_mask`` (N, B) that the layers and the CUDA kernel read.
+``B`` is the padded max degree; self-loops are part of every neighbourhood.
+``subgraph`` serves the federated partition's per-client extraction.
+
+The dense ``(N, N)`` adjacency is not stored. ``Graph.adj`` is a lazily
+derived view kept for the dense GAT/GCN oracles and small-graph tests: every
+materialisation increments the ``graphs.dense_view_count`` counter of the
+metrics registry (:func:`dense_view_count`; the smoke run asserts it stays
+zero through the large-graph paths), and graphs larger than
+:func:`dense_adj_limit` nodes raise :class:`DenseAdjacencyError` instead of
+allocating O(N^2).
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.telemetry.metrics import counter as _metrics_counter
+
+# --------------------------------------------------------------------------
+# Dense-view policy: the (N, N) adjacency is an escape hatch, not a format.
+# --------------------------------------------------------------------------
+
+DENSE_ADJ_DEFAULT_MAX_NODES = 8192
+
+_DENSE_VIEWS = _metrics_counter("graphs.dense_view_count")
+
+
+def dense_adj_limit() -> int:
+    """Max node count for which ``Graph.adj`` may materialise (N, N).
+
+    Override with the ``REPRO_DENSE_ADJ_MAX`` env var (validated positive
+    int), the reference's own setting. 8192 nodes = a 64 MiB bool matrix.
+    """
+    raw = os.environ.get("REPRO_DENSE_ADJ_MAX", "").strip()
+    if not raw:
+        return DENSE_ADJ_DEFAULT_MAX_NODES
+    try:
+        v = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"REPRO_DENSE_ADJ_MAX={raw!r}: must be a positive integer"
+        ) from None
+    if v <= 0:
+        raise ValueError(f"REPRO_DENSE_ADJ_MAX={raw!r}: must be a positive integer")
+    return v
+
+
+def dense_view_count() -> int:
+    """How many times a dense (N, N) adjacency view was materialised in this
+    process: a thin view over the ``graphs.dense_view_count`` counter."""
+    return _DENSE_VIEWS.value
+
+
+def reset_dense_view_count() -> None:
+    _DENSE_VIEWS.reset()
+
+
+class DenseAdjacencyError(MemoryError):
+    """A dense (N, N) view was requested for a graph above the size limit."""
 
 
 class Graph(NamedTuple):
@@ -44,9 +95,46 @@ class Graph(NamedTuple):
         """Stored CSR entries (directed slots, self-loops included)."""
         return int(self.indices.shape[0])
 
+    @property
+    def adj(self) -> np.ndarray:
+        """Lazily derived dense (N, N) view — see the module docstring.
+
+        Counted by :func:`dense_view_count`; raises
+        :class:`DenseAdjacencyError` when ``num_nodes > dense_adj_limit()``.
+        """
+        return dense_adjacency(self)
+
     def degrees(self) -> np.ndarray:
         """(N,) int64 CSR row degrees (self-loops included)."""
         return np.diff(self.indptr)
+
+    def num_undirected_edges(self, include_self_loops: bool = False) -> int:
+        """Undirected edge count. Assumes a symmetric CSR (a degree-capped
+        graph is directed; there the count is of the capped slots / 2)."""
+        rows = np.repeat(np.arange(self.num_nodes, dtype=np.int64), self.degrees())
+        loops = int((rows == self.indices).sum())
+        off = (self.nnz - loops) // 2
+        return off + (loops if include_self_loops else 0)
+
+
+def dense_adjacency(g: Graph) -> np.ndarray:
+    """Materialise the dense (N, N) bool adjacency from the CSR encoding:
+    the only way a dense adjacency comes into existence, for the dense
+    oracles and small-graph tests."""
+    n = g.num_nodes
+    limit = dense_adj_limit()
+    if n > limit:
+        raise DenseAdjacencyError(
+            f"refusing to materialise a dense ({n}, {n}) adjacency: graph "
+            f"has {n} nodes > dense_adj_limit()={limit}. Large graphs must "
+            "stay on the CSR/neighbour-list paths (set REPRO_DENSE_ADJ_MAX "
+            "to override for debugging)."
+        )
+    _DENSE_VIEWS.inc()
+    a = np.zeros((n, n), dtype=bool)
+    rows = np.repeat(np.arange(n, dtype=np.int64), g.degrees())
+    a[rows, g.indices] = True
+    return a
 
 
 # --------------------------------------------------------------------------
@@ -134,6 +222,37 @@ def csr_to_padded(
         gathered = np.zeros((n, B), dtype=np.int32)
     nbr_idx = np.where(nbr_mask, gathered, 0).astype(np.int32)
     return nbr_idx, nbr_mask
+
+
+def build_neighbor_lists(
+    adj_or_edges: np.ndarray,
+    pad_multiple: int = 8,
+    max_degree: Optional[int] = None,
+    *,
+    num_nodes: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Adjacency -> padded ``(nbr_idx, nbr_mask)``.
+
+    Two input forms:
+
+    * dense (N, N) adjacency (with self-loops already folded), for small
+      graphs and tests;
+    * (E, 2) edge list with ``num_nodes=`` given; edges are symmetrised,
+      self-loops added, duplicates collapsed.
+
+    Both produce identical output for the same graph.
+    """
+    arr = np.asarray(adj_or_edges)
+    if num_nodes is not None:
+        indptr, indices = edges_to_csr(arr, int(num_nodes))
+    else:
+        if arr.ndim != 2 or arr.shape[0] != arr.shape[1]:
+            raise ValueError(
+                "dense input must be a square (N, N) adjacency; pass "
+                "num_nodes= to treat the input as an (E, 2) edge list"
+            )
+        indptr, indices = dense_to_csr(arr)
+    return csr_to_padded(indptr, indices, pad_multiple, max_degree)
 
 
 # --------------------------------------------------------------------------

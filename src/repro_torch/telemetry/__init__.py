@@ -14,9 +14,12 @@ The port's copy of ``repro.telemetry``:
   (:mod:`repro_torch.telemetry.manifest`) that ``build_result`` and
   serving bundles attach.
 
-``enable(out_dir)`` turns spans and events on and, with ``out_dir``,
-writes the run's artifacts there at process exit (:func:`write_run`:
-trace.json, metrics.json, manifest.json, events.jsonl).
+``enable(out_dir)`` (or ``configure(enabled=True, out_dir=...)``) turns
+spans and events on and, with ``out_dir``, writes the run's artifacts there
+at process exit (:func:`write_run`: trace.json, metrics.json,
+manifest.json, events.jsonl). The reference's environment switch applies
+at import: ``REPRO_TELEMETRY`` set to 1, true, yes or on enables, and
+``REPRO_TELEMETRY_DIR`` then names the out dir.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from repro_torch.telemetry.tracing import NULL_SPAN, SpanRecord, Tracer
 
 __all__ = [
     "EventSink", "NULL_SPAN", "SpanRecord", "Tracer", "build_manifest", "config_hash",
-    "counter", "disable", "enable", "enabled", "event", "events",
+    "configure", "counter", "disable", "enable", "enabled", "event", "events",
     "export_chrome_trace", "gauge", "histogram", "manifest", "metrics",
     "metrics_snapshot", "records", "reset", "span", "tracer", "write_run",
 ]
@@ -69,10 +72,20 @@ def disable() -> None:
     _enabled = False
 
 
-def reset() -> None:
-    """Drop the recorded spans and events."""
+def configure(*, enabled: bool, out_dir: Optional[str] = None) -> None:
+    if enabled:
+        enable(out_dir)
+    else:
+        disable()
+
+
+def reset(reset_metrics: bool = False) -> None:
+    """Drop the recorded spans and events, and with ``reset_metrics`` zero
+    every metric of the registry (registrations are kept)."""
     tracer.reset()
     _events.reset()
+    if reset_metrics:
+        metrics.registry().reset()
 
 
 def records() -> List[SpanRecord]:
@@ -148,3 +161,10 @@ def _write_run_atexit() -> None:
             write_run(_out_dir)
         except Exception as err:  # never fail interpreter shutdown
             print(f"repro_torch.telemetry: atexit write failed: {err}", file=sys.stderr)
+
+
+# The reference's activation at import (repro/telemetry/__init__.py).
+_env = os.environ.get("REPRO_TELEMETRY", "").strip().lower()
+if _env in ("1", "true", "yes", "on"):
+    enable(os.environ.get("REPRO_TELEMETRY_DIR") or None)
+del _env

@@ -1,17 +1,30 @@
-"""Process-wide counters and bounded histograms (pure Python).
+"""Process-wide metrics registry: counters, gauges, bounded histograms.
 
-The serving slice's copy of ``repro/telemetry/metrics.py``: only
-:class:`Counter`, :class:`Gauge`, :class:`Histogram` and their
-process-wide accessors — what the pack cache, the scheduler, the cohort
-driver and the privacy stack use — and :func:`snapshot`, which
-``telemetry.write_run`` stores as ``metrics.json``.
+The port's copy of ``repro/telemetry/metrics.py``, pure Python (no torch,
+no numpy), so the graph container can count its dense views here. One
+:class:`MetricsRegistry` per process (:func:`registry`) holds every named
+metric; :func:`counter`, :func:`gauge`, :func:`histogram` and
+:func:`snapshot` are thin views over it. Asking for a registered name
+under another kind raises. ``telemetry.write_run`` stores the snapshot as
+``metrics.json``.
 """
 from __future__ import annotations
 
 import math
+import threading
 from typing import Any, Dict, Optional
 
-__all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge", "histogram", "snapshot"]
+__all__ = [
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "registry",
+    "counter",
+    "gauge",
+    "histogram",
+    "snapshot",
+]
 
 
 class Counter:
@@ -29,6 +42,9 @@ class Counter:
 
     def inc(self, n: int = 1) -> None:
         self._value += n
+
+    def reset(self) -> None:
+        self._value = 0
 
     def snapshot(self) -> Dict[str, Any]:
         return {"type": "counter", "value": self._value}
@@ -49,6 +65,9 @@ class Gauge:
 
     def set(self, v: float) -> None:
         self._value = float(v)
+
+    def reset(self) -> None:
+        self._value = None
 
     def snapshot(self) -> Dict[str, Any]:
         return {"type": "gauge", "value": self._value}
@@ -147,6 +166,13 @@ class Histogram:
             return v_lo
         return v_lo + frac * (value_at(lo_rank + 1) - v_lo)
 
+    def reset(self) -> None:
+        self._counts = [0] * (self._nb + 2)
+        self.count = 0
+        self.total = 0.0
+        self.vmin = math.inf
+        self.vmax = -math.inf
+
     def snapshot(self) -> Dict[str, Any]:
         if self.count == 0:
             return {"type": "histogram", "count": 0}
@@ -161,36 +187,76 @@ class Histogram:
             "p99": self.quantile(99),
         }
 
-_COUNTERS: Dict[str, Counter] = {}
-_GAUGES: Dict[str, Gauge] = {}
-_HISTOGRAMS: Dict[str, Histogram] = {}
+
+class MetricsRegistry:
+    """Named metrics, one instance per process (see :func:`registry`).
+
+    Lookups are get-or-create; asking for an existing name with a
+    different metric kind is a bug and raises.
+    """
+
+    def __init__(self) -> None:
+        self._metrics: Dict[str, Any] = {}
+        self._lock = threading.Lock()
+
+    def _get(self, name: str, kind, **kwargs):
+        m = self._metrics.get(name)
+        if m is None:
+            with self._lock:
+                m = self._metrics.get(name)
+                if m is None:
+                    m = kind(name, **kwargs)
+                    self._metrics[name] = m
+        if not isinstance(m, kind):
+            raise TypeError(
+                f"metric {name!r} is a {type(m).__name__}, "
+                f"not a {kind.__name__}"
+            )
+        return m
+
+    def counter(self, name: str) -> Counter:
+        return self._get(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
+
+    def histogram(self, name: str, **kwargs) -> Histogram:
+        return self._get(name, Histogram, **kwargs)
+
+    def snapshot(self) -> Dict[str, Dict[str, Any]]:
+        """Serializable {name: {type, value/stats}} of every metric, by name."""
+        return {
+            name: m.snapshot() for name, m in sorted(self._metrics.items())
+        }
+
+    def reset(self) -> None:
+        """Zero every metric (keeps registrations)."""
+        for m in self._metrics.values():
+            m.reset()
+
+
+_REGISTRY = MetricsRegistry()
+
+
+def registry() -> MetricsRegistry:
+    return _REGISTRY
 
 
 def counter(name: str) -> Counter:
     """The process-wide counter ``name`` (created on first use)."""
-    c = _COUNTERS.get(name)
-    if c is None:
-        c = _COUNTERS[name] = Counter(name)
-    return c
+    return _REGISTRY.counter(name)
 
 
 def gauge(name: str) -> Gauge:
     """The process-wide gauge ``name`` (created on first use)."""
-    g = _GAUGES.get(name)
-    if g is None:
-        g = _GAUGES[name] = Gauge(name)
-    return g
+    return _REGISTRY.gauge(name)
 
 
-def histogram(name: str) -> Histogram:
-    """The process-wide histogram ``name`` (created on first use)."""
-    h = _HISTOGRAMS.get(name)
-    if h is None:
-        h = _HISTOGRAMS[name] = Histogram(name)
-    return h
+def histogram(name: str, **kwargs) -> Histogram:
+    """The process-wide histogram ``name`` (created on first use with
+    ``kwargs``: ``lo``, ``hi``, ``growth``)."""
+    return _REGISTRY.histogram(name, **kwargs)
 
 
 def snapshot() -> Dict[str, Dict[str, Any]]:
-    """Serializable {name: {type, value/stats}} of every metric, by name."""
-    every = {**_COUNTERS, **_GAUGES, **_HISTOGRAMS}
-    return {name: every[name].snapshot() for name in sorted(every)}
+    return _REGISTRY.snapshot()

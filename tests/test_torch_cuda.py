@@ -21,6 +21,9 @@ DP, pairwise masks or the protocol against the same run on the CPU. The
 shard_map backend on the card: one process (one-lane cohorts) against the
 loop with exact launch counts, two ranks sharing card 0 over gloo, and
 two ranks with a card each over NCCL (skipped with fewer than two cards).
+The dense GAT/GCN forms against the neighbour-list forms and
+``moments_direct`` against the CPU on ``cora_like``, and the theorem drivers
+of ``benchmarks_torch`` on the card against the CPU.
 
 Imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -1098,3 +1101,83 @@ def test_cuda_lm_bf16_serve_and_train_step():
     assert 0 <= int(res["tokens"].min()) and int(res["tokens"].max()) < cfg.vocab_size
     assert bool(torch.isfinite(loss)) and int(opt.step) == 1
     assert {t.dtype for t in _lm_leaves(new).values()} == {torch.float32}
+
+
+# ---------------------------------------------------------------------------
+# The reference API and the paper drivers on the card (chip_smoke phase 11)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_dense_forms_and_moments():
+    """On ``cora_like`` at ``FedGATConfig()`` widths: the dense GAT against
+    its neighbour-list form (rtol 1e-5 / atol 1e-5, tests/test_gat.py:33),
+    the dense GCN against ``gcn_forward_nbr`` (atol 1e-5,
+    tests/test_bucketed_kernel.py:108), ``moments_direct`` on the card
+    against the CPU (rtol 1e-5); one dense view, no kernel launched;
+    ``sbm_100k``'s dense view refused."""
+    _needs_card()
+    from repro_torch.core import init_gcn_params, init_params, normalized_adjacency
+    from repro_torch.core.gat import gat_forward
+    from repro_torch.core.gcn import gcn_forward, gcn_forward_nbr, normalized_nbr_coeffs
+    from repro_torch.core.poly_attention import edge_scores, head_projections, moments_direct
+    from repro_torch.graphs import (DenseAdjacencyError, dense_view_count, make_sbm,
+                                    reset_dense_view_count)
+
+    g = make_cora_like("cora_like", seed=0)
+    dev = torch.device("cuda")
+    reset_dense_view_count()
+    before = _lm_counts()
+    params = init_params(torch.Generator().manual_seed(0), g.feature_dim, g.num_classes,
+                         FedGATConfig(), device=dev)
+    h = torch.as_tensor(g.features, device=dev)
+    idx = torch.as_tensor(g.nbr_idx, device=dev).long()
+    mask = torch.as_tensor(g.nbr_mask, device=dev)
+    adj = g.adj
+    with torch.no_grad():
+        dense = gat_forward(params, h, torch.as_tensor(adj, device=dev))
+        nbr = gat_forward(params, h, None, use_nbr=True, nbr_idx=idx, nbr_mask=mask)
+        torch.testing.assert_close(dense, nbr, rtol=1e-5, atol=1e-5)
+        gp = init_gcn_params(torch.Generator().manual_seed(0), g.feature_dim, 16,
+                             g.num_classes, device=dev)
+        a_norm = torch.as_tensor(normalized_adjacency(adj), device=dev)
+        coef = torch.as_tensor(normalized_nbr_coeffs(g.nbr_idx, g.nbr_mask), device=dev)
+        torch.testing.assert_close(gcn_forward(gp, h, a_norm), gcn_forward_nbr(gp, h, idx, coef),
+                                   rtol=0.0, atol=1e-5)
+        b1, b2 = head_projections(params[0])
+        x = edge_scores(b1, b2, h, idx)
+        E, F = moments_direct(x, h[idx], mask, 16)
+        Ec, Fc = moments_direct(x.cpu(), h[idx].cpu(), mask.cpu(), 16)
+    torch.testing.assert_close(E.cpu(), Ec, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(F.cpu(), Fc, rtol=1e-5, atol=1e-6)
+    assert _lm_counts() == before and dense_view_count() == 1
+    with pytest.raises(DenseAdjacencyError):
+        make_sbm("sbm_100k", seed=0).adj
+    assert dense_view_count() == 1
+    reset_dense_view_count()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["thm35_error_prop", "stability_basis"])
+def test_cuda_theorem_drivers_match_the_cpu(name):
+    """The theorem drivers on the card against the CPU from the same
+    params: every value at rtol 1e-4 / atol 1e-6, ``err_power`` at rtol
+    1e-3 where finite, flags equal; no kernel launched."""
+    _needs_card()
+    import math
+
+    mod = importlib.import_module(f"benchmarks_torch.{name}")
+    before = _lm_counts()
+    gpu = mod.run(fast=False, device="cuda")
+    assert _lm_counts() == before
+    cpu = mod.run(fast=False, device="cpu")
+    for a, b in zip(gpu, cpu, strict=True):
+        assert list(a) == list(b)
+        for k, want in b.items():
+            if isinstance(want, bool) or k == "degree":
+                assert a[k] == want
+            elif k == "err_power":
+                assert math.isfinite(a[k]) == math.isfinite(want)
+                if math.isfinite(want):
+                    assert a[k] == pytest.approx(want, rel=1e-3)
+            else:
+                assert a[k] == pytest.approx(want, rel=1e-4, abs=1e-6), (k, a, b)

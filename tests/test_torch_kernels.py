@@ -7,6 +7,8 @@ kernels themselves are held against the plain versions by
 ``chip_smoke.py`` and by ``tests/test_torch_cuda.py``, which skips without
 a card.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -22,7 +24,6 @@ from repro.kernels.cheb_attn import cheb_attn_diff as jax_cheb_attn_diff
 from repro_torch.core import FedGATConfig, get_engine, init_params, layered_forward
 from repro_torch.graphs import make_cora_like
 from repro_torch.kernels import _build
-from repro_torch.kernels import cheb_attn as cheb_mod
 from repro_torch.kernels.cheb_attn import (
     MAX_COEFFS,
     _bwd_ld,
@@ -32,6 +33,8 @@ from repro_torch.kernels.cheb_attn import (
     cheb_attn_backward,
 )
 from repro_torch.kernels.ref import cheb_attn_bwd_ref, cheb_attn_ref
+
+cheb_mod = importlib.import_module("repro_torch.kernels.cheb_attn")
 
 torch.set_num_threads(1)
 
