@@ -3,8 +3,10 @@ persistence, CSV emission, and the backend-aware CLI of the figure
 scripts.
 
 The port of ``benchmarks/common.py``. Rows go to
-``benchmarks_torch/results/<name>.json``; nothing here writes the
-reference's ``BENCH_*.json``. Every driver runs on the CUDA device unless
+``benchmarks_torch/results/<name>.json``, and the system benchmarks' row
+artifacts to ``benchmarks_torch/results/BENCH_<name>.json``
+(:func:`write_bench_root`); nothing here writes the reference's repo-root
+``BENCH_*.json``. Every driver runs on the CUDA device unless
 ``--device cpu`` (or ``device="cpu"``) asks for the CPU.
 """
 from __future__ import annotations
@@ -19,6 +21,26 @@ from typing import Any, Callable, Dict, List
 RESULTS_DIR = pathlib.Path(__file__).parent / "results"
 
 BACKEND_CHOICES = ("vmap", "shard_map")
+
+
+def write_bench_root(name: str, rows: List[Dict[str, Any]]) -> pathlib.Path:
+    """Write ``BENCH_<name>.json`` under :data:`RESULTS_DIR`: the per-run
+    artifact of a system benchmark, which ``check_regression.py`` validates.
+
+    With telemetry enabled, the run's Chrome trace lands next to it as
+    ``BENCH_<name>_trace.json`` and every row carries a ``trace`` pointer
+    to it (``check_regression`` skips ``*_trace.json``: a trace, not a
+    row list)."""
+    from repro_torch import telemetry
+
+    RESULTS_DIR.mkdir(parents=True, exist_ok=True)
+    path = RESULTS_DIR / f"BENCH_{name}.json"
+    if telemetry.enabled():
+        trace_path = RESULTS_DIR / f"BENCH_{name}_trace.json"
+        telemetry.export_chrome_trace(str(trace_path))
+        rows = [dict(r, trace=trace_path.name) for r in rows]
+    path.write_text(json.dumps(rows, indent=1, default=str) + "\n")
+    return path
 
 
 def figure_cli(
@@ -95,6 +117,27 @@ def figure_cli(
     save_results(out_name, rows)
     print("name,us_per_call,derived")
     print(csv_row(out_name, us, derived(rows)), flush=True)
+
+
+def peak_rss_mb() -> float:
+    """Process peak RSS in MB: ``VmHWM`` of ``/proc/self/status``, which
+    starts anew at ``exec`` (``ru_maxrss`` would start a child at the peak
+    of the process that launched it). Where there is no ``VmHWM`` (macOS,
+    gVisor), ``ru_maxrss`` (KB, bytes on macOS): launch benches from a
+    small process there."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    return int(line.split()[1]) / 1024.0
+    except OSError:
+        pass
+    import resource
+
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    if sys.platform == "darwin":
+        peak //= 1024
+    return peak / 1024.0
 
 
 def save_results(name: str, rows: List[Dict[str, Any]]) -> None:

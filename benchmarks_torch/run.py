@@ -1,5 +1,6 @@
 """Benchmark orchestrator of the port — one module per paper table,
-figure or theorem.
+figure or theorem, and the system benchmarks (kernels, graph scaling,
+serving, population scale, privacy).
 
 The port of ``benchmarks/run.py``. Prints ``name,us_per_call,derived``
 CSV (us_per_call = wall time of the whole experiment; derived = the

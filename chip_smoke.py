@@ -193,19 +193,41 @@ Phases (any failure exits non-zero, and no result line is printed):
    dense ``gcn_forward`` on ``normalized_adjacency`` against
    ``gcn_forward_nbr`` (atol 1e-5, tests/test_bucketed_kernel.py:108),
    ``moments_direct`` on the card against a CPU copy (rtol 1e-5 / atol
-   1e-6). 11b: each driver that ``benchmarks_torch.run``'s discovery finds
-   runs its ``fast`` sweep on the card (``run(fast=True, device=...)``): its
+   1e-6). 11b: each paper driver that ``benchmarks_torch.run``'s discovery
+   finds (its 14 modules less phase 12's six system benchmarks) runs its
+   ``fast`` sweep on the card (``run(fast=True, device=...)``): its
    rows, local steps (calls of the trainer's ``grad_of``), seconds and
    ``derived`` line; thm2's and fig3's rows equal to the CPU's, thm35's
    and stability's within rtol 1e-4 / atol 1e-6 of the CPU's (``err_power``
    rtol 1e-3 where finite, flags equal), every accuracy finite and in
    [0, 1].
 
+12. The system benchmarks, the two smokes and the four examples, each
+   through its own entry point on the card, each in a process of its own
+   (started while the module before runs, released by "go"), the counts
+   zeroed in that process just before the call and read just after, held
+   exactly as reckoned from the code: ``benchmarks_torch`` ``kernel_bench``
+   (one warm-up and ``REPEATS`` timed calls a kernel a row: 28 cheb_attn,
+   4 flash_attn, 4 poly_attn at ``--fast``; each row within phase 5's
+   tolerance), ``graph_bench`` (repeats x (1 flat + one a bucket) at
+   sbm_1k and sbm_10k; no dense view), ``serve_bench`` (one forward a
+   client of the ``kernel`` server; ``engine`` equal to the one asked
+   for), ``fed_scale_bench``, ``privacy_audit`` and ``privacy_tradeoff``
+   (vmap) at ``--fast`` (no kernel; accuracies in [0, 1]),
+   ``large_graph_smoke`` (one flat layer on sbm_100k; no dense view, RSS
+   under its budget), ``telemetry_smoke`` at its 5% gate (no kernel);
+   ``examples_torch`` ``quickstart``, ``e2e_federated_training`` (20
+   rounds), ``engines_and_privacy`` (one forward through the kernel engine;
+   every engine against ``direct`` at the serving tolerances, a masked
+   round within 1e-5 of the plain one) and ``lm_train_smoke``
+   (granite-moe-1b-a400m reduced). No module loads ``jax``, ``repro`` or
+   ``benchmarks``. Each module's seconds and derived line are printed.
+
 The second-to-last line is a JSON object describing each kernel
-(``launches``: cheb_attn's over the serving, training, kernel-API, cohort
-and distributed phases, split in ``launches_by_path``, the backward's over
-the training, cohort and distributed phases, the sequence kernels' over
-the kernel-API phase; ``max_abs_err``:
+(``launches``: cheb_attn's over the serving, training, kernel-API, cohort,
+distributed, bench and example phases, split in ``launches_by_path``, the
+backward's over the training, cohort and distributed phases, the sequence
+kernels' over the kernel-API phase and the benches; ``max_abs_err``:
 kernel against plain version); the last line is ``{"ok": true,
 "device": {...}}``. Imports nothing of JAX or of the JAX package.
 """
@@ -217,6 +239,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -2357,6 +2380,9 @@ def mesh_phase(smi):
 # just after it.
 
 PAPER_RTOL, PAPER_ATOL = 1e-4, 1e-6   # the theorem drivers' float32 maxima, card vs CPU
+# The discovered modules that are system benchmarks, not paper drivers (phase 12).
+SYSTEM_BENCHES = {"fed_scale_bench", "graph_bench", "kernel_bench", "privacy_audit",
+                  "privacy_tradeoff", "serve_bench"}
 POWER_RTOL = 1e-3                     # err_power at high degree (monomial cancellation)
 DENSE_TOL = 1e-5                      # tests/test_gat.py:33, tests/test_bucketed_kernel.py:108
 MOMENT_RTOL, MOMENT_ATOL = 1e-5, 1e-6
@@ -2447,11 +2473,13 @@ def paper_phase(dev, smi):
     t11a = time.perf_counter() - t0
 
     # -- 11b: the paper drivers, fast sweeps, on the card -------------------
-    benches = discover_benches()
+    found = discover_benches()
+    benches = [(name, mod) for name, mod in found if name not in SYSTEM_BENCHES]
     names = [name for name, _ in benches]
-    print(f"11b drivers discovered: {names}", flush=True)
-    if len(names) != 8:
-        fail(f"11b: discovered {len(names)} drivers, want 8")
+    print(f"11b drivers discovered: {names} (and phase 12's {sorted(SYSTEM_BENCHES)})",
+          flush=True)
+    if len(names) != 8 or len(found) != 8 + len(SYSTEM_BENCHES):
+        fail(f"11b: discovered {len(found)} modules, {len(names)} drivers; want 14 and 8")
     steps = {"n": 0}
     grad_of = fed_trainer.grad_of
 
@@ -2491,6 +2519,264 @@ def paper_phase(dev, smi):
     print(f"phase 11 parts: 11a {t11a:.1f}s, 11b {time.perf_counter() - t0:.1f}s "
           f"({total_steps} local steps; " + ", ".join(f"{k} {v:.1f}s" for k, v in seconds.items())
           + f"); {smi}", flush=True)
+
+
+# -- phase 12: the system benchmarks, the two smokes and the examples ---------
+# Each module runs in a process of its own (``MODULE_WORKER``): its launch
+# counts, zeroed just before its call and read just after, are exact for
+# that call alone. A process is started while the module before it runs
+# (torch's import and the CUDA context take ~8 s) and waits for "go" on its
+# standard input; it exits at end of input, so none outlives the smoke.
+
+MODULE_WORKER = r"""
+import importlib, json, os, sys, time
+t_start = time.perf_counter()
+sys.path[:0] = [os.path.join(sys.argv[1], "src"), sys.argv[1]]
+import numpy as np
+import torch
+import repro_torch.federated, repro_torch.models, repro_torch.privacy.attacks, repro_torch.serving
+from repro_torch.graphs import dense_view_count
+from repro_torch.kernels import flash_attn, poly_attn, wkv_chunked
+from repro_torch.kernels.cheb_attn import cheb_attn, cheb_attn_backward
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+spec = json.loads(sys.argv[2])
+device = spec.get("device", "cuda")
+sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+torch.zeros(1, device=device)
+sync()
+mod = importlib.import_module(spec["module"])
+startup = time.perf_counter() - t_start
+if sys.stdin.readline().strip() != "go":
+    sys.exit(0)
+recorded = {}
+for name in spec.get("record", []):
+    def recorder(*args, _fn=getattr(mod, name), _name=name, **kwargs):
+        out = _fn(*args, **kwargs)
+        recorded[_name] = ({k: np.asarray(v).tolist() for k, v in out.items()}
+                           if isinstance(out, dict) else out)
+        return out
+    setattr(mod, name, recorder)
+counters = (cheb_attn, cheb_attn_backward, flash_attn, poly_attn, wkv_chunked)
+for c in counters:
+    c.launches = 0
+t0 = time.perf_counter()
+if "argv" in spec:
+    rows, derived = None, None
+    rc = mod.main(spec["argv"] + ([] if device == "cuda" else ["--device", device]))
+else:
+    rows = mod.run(fast=True, device=device, **spec.get("kwargs", {}))
+    derived, rc = mod.derived(rows), 0
+sync()
+seconds = time.perf_counter() - t0
+launches = {c.__name__: c.launches for c in counters}
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro", "benchmarks"))
+print("RESULT " + json.dumps({"rc": rc, "seconds": seconds, "startup": startup,
+                              "launches": launches, "rows": rows, "derived": derived,
+                              "recorded": recorded, "loaded": loaded,
+                              "dense_views": dense_view_count()}), flush=True)
+"""
+
+SERVING_TOLS = {"direct": (0.0, 0.0), "kernel": (RTOL, ATOL), "vector": (RTOL, ATOL),
+                "matrix": MATRIX_TOL}
+MASKED_TOL = 1e-5             # one masked round against the plain one (tests/test_privacy.py)
+E2E_ROUNDS = 20
+
+
+def start_module(spec):
+    """A worker process for ``spec``, started now and waiting for "go"."""
+    return subprocess.Popen([sys.executable, "-c", MODULE_WORKER, HERE, json.dumps(spec)],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=HERE)
+
+
+def finish_module(label, proc, want, smi):
+    """Let ``proc`` run its module; fails unless it returns 0 (or None), loads
+    nothing of JAX or the reference, and launches exactly ``want`` (every
+    other kernel: 0). Returns its result record."""
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate("go\n", timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"12 {label}: no result within 600 s")
+    wall = time.perf_counter() - t0
+    lines = out.splitlines()
+    for line in lines:
+        if not line.startswith("RESULT "):
+            print(f"  {label}| {line}", flush=True)
+    results = [line for line in lines if line.startswith("RESULT ")]
+    if proc.returncode != 0 or not results:
+        print(err[-4000:], file=sys.stderr)
+        fail(f"12 {label}: the module's process exited {proc.returncode}")
+    res = json.loads(results[-1][len("RESULT "):])
+    want_all = {"cheb_attn": 0, "cheb_attn_backward": 0, "flash_attn": 0, "poly_attn": 0,
+                "wkv_chunked": 0, **want}
+    print(f"12 {label}: {res['seconds']:.2f} s in its call ({wall:.2f} s from go to exit; "
+          f"its process's start-up {res['startup']:.2f} s); launches "
+          f"{res['launches']} (want {want_all}); derived: {res['derived']}; {smi}", flush=True)
+    if res["rc"] not in (0, None):        # the large-graph smoke's main returns None
+        fail(f"12 {label}: returned {res['rc']}")
+    if res["loaded"]:
+        fail(f"12 {label}: loaded {res['loaded']}")
+    if res["launches"] != want_all:
+        fail(f"12 {label}: the kernel launch counts differ from the reckoning")
+    return res
+
+
+def run_modules(modules, smi, alone=()):
+    """Each (label, spec, want) of ``modules`` in turn, each in its own
+    process, the next two started while the current one runs; no process
+    starts while a module in ``alone`` (one whose timings are gated) runs.
+    Returns {label: result record}."""
+    procs = {}
+
+    def ensure(j):
+        if j not in procs:
+            procs[j] = start_module(modules[j][1])
+
+    results = {}
+    for i, (label, spec, want) in enumerate(modules):
+        ensure(i)
+        if label not in alone:
+            for j in range(i + 1, min(i + 3, len(modules))):
+                if any(modules[k][0] in alone for k in range(i + 1, j)):
+                    break
+                ensure(j)
+        results[label] = finish_module(label, procs.pop(i), want, smi)
+    return results
+
+
+def benches_phase(smi):
+    """Phase 12: the system benchmarks at ``--fast``, the large-graph and
+    telemetry smokes, and the four examples, each through its own entry
+    point on the card. Returns each kernel's launches by path
+    ("benches", "examples"), summed over the modules' own counts."""
+    import tempfile
+
+    from benchmarks_torch import graph_bench, kernel_bench, serve_bench
+    from repro_torch.graphs import make_sbm
+    from repro_torch.kernels.ops import degree_bucket_plan
+
+    t_phase = time.perf_counter()
+    # Launches reckoned from the code: kernel_bench, one warm-up and REPEATS
+    # timed calls a kernel a row; graph_bench, each size's repeats x (one flat
+    # launch + one a bucket); serve_bench, one forward a client (a pack miss)
+    # of the kernel server; the large-graph smoke, one flat layer; the
+    # engines example, the kernel engine's one forward; all else 0.
+    want_kernel = {k: v for k, v in kernel_bench.expected_launches(True).items() if v}
+    want_graph = sum(reps * (1 + len(degree_bucket_plan(make_sbm(preset, seed=0).nbr_mask)))
+                     for preset, _, reps in graph_bench.sizes_for(True))
+    want_serve = sum(serve_bench.sweep(True)[1])     # every client is among the queries
+    with tempfile.TemporaryDirectory() as tmp:
+        modules = [
+            ("kernel_bench", {"module": "benchmarks_torch.kernel_bench"}, want_kernel),
+            ("graph_bench", {"module": "benchmarks_torch.graph_bench"},
+             {"cheb_attn": want_graph}),
+            ("serve_bench", {"module": "benchmarks_torch.serve_bench"},
+             {"cheb_attn": want_serve}),
+            ("fed_scale_bench", {"module": "benchmarks_torch.fed_scale_bench"}, {}),
+            ("privacy_audit", {"module": "benchmarks_torch.privacy_audit"}, {}),
+            ("privacy_tradeoff", {"module": "benchmarks_torch.privacy_tradeoff",
+                                  "kwargs": {"backend": "vmap"}}, {}),
+            ("large_graph_smoke", {"module": "benchmarks_torch.large_graph_smoke",
+                                   "argv": []}, {"cheb_attn": 1}),
+            ("telemetry_smoke", {"module": "benchmarks_torch.telemetry_smoke",
+                                 "argv": ["--out", os.path.join(tmp, "telemetry")]}, {}),
+            ("quickstart", {"module": "examples_torch.quickstart", "argv": []}, {}),
+            ("e2e_federated_training", {
+                "module": "examples_torch.e2e_federated_training",
+                "argv": ["--rounds", str(E2E_ROUNDS), "--ckpt", os.path.join(tmp, "ckpt.npz")]},
+             {}),
+            ("engines_and_privacy", {"module": "examples_torch.engines_and_privacy",
+                                     "argv": [], "record": ["engine_logits",
+                                                            "masked_round_drift"]},
+             {"cheb_attn": 1}),
+            ("lm_train_smoke", {"module": "examples_torch.lm_train_smoke",
+                                "argv": ["--arch", "granite-moe-1b-a400m"]}, {}),
+        ]
+        res = run_modules(modules, smi, alone={"telemetry_smoke"})
+
+    tols = {"cheb_attn": (RTOL, ATOL), "cheb_attn_layer": (RTOL, ATOL),
+            "cheb_attn_heads": (RTOL, ATOL), "flash_attn": FLASH_TOL, "poly_attn": POLY_TOL}
+    if kernel_bench.TOLERANCES != tols:
+        fail(f"12 kernel_bench: tolerances {kernel_bench.TOLERANCES} are not phase 5's {tols}")
+    for row in res["kernel_bench"]["rows"]:
+        times = {k: round(v, 1) for k, v in row.items() if k.startswith("us_")}
+        print(f"12 kernel_bench {row['kernel']} {row['shape']}: {times} us (best of "
+              f"{kernel_bench.REPEATS}); max_err {row['max_err']:.3e}, {row['err_over_tol']:.3f} "
+              f"of (rtol, atol) {tols[row['kernel']]}; plan {row.get('launch_plan', '-')}",
+              flush=True)
+        if not row["err_over_tol"] <= 1.0:
+            fail(f"12 kernel_bench {row['kernel']}: the kernel disagrees with its plain version")
+    for label in ("graph_bench", "large_graph_smoke"):
+        if res[label]["dense_views"] != 0:
+            fail(f"12 {label}: {res[label]['dense_views']} dense views")
+    for row in res["serve_bench"]["rows"]:
+        if row["engine"] != row["engine_requested"] or row["cache_misses"] != row["clients"]:
+            fail(f"12 serve_bench: row {row} took another engine or missed another count")
+    if serve_bench.kernel_launches(res["serve_bench"]["rows"]) != want_serve:
+        fail("12 serve_bench: launches differ from the kernel server's pack misses")
+    for name in ("graph_bench", "serve_bench", "fed_scale_bench", "privacy_audit",
+                 "privacy_tradeoff"):
+        for row in res[name]["rows"]:
+            print(f"12 {name}: " + json.dumps(row), flush=True)
+        accs = [r[k] for r in res[name]["rows"] for k in ("acc", "final_test") if k in r]
+        if not all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs):
+            fail(f"12 {name}: an accuracy is not finite or not in [0, 1]")
+
+    recorded = res["engines_and_privacy"]["recorded"]
+    logits = {k: np.asarray(v) for k, v in recorded["engine_logits"].items()}
+    for engine, (rtol, atol) in SERVING_TOLS.items():
+        ok = np.isfinite(logits[engine]).all() and np.allclose(
+            logits[engine], logits["direct"], rtol=rtol, atol=atol)
+        err = float(np.abs(logits[engine] - logits["direct"]).max())
+        print(f"12 engines_and_privacy {engine} vs direct: max_abs_err {err:.3e} "
+              f"allclose(rtol={rtol},atol={atol})={ok}", flush=True)
+        if not ok:
+            fail(f"12 engines_and_privacy: the {engine} engine disagrees with direct")
+    drift = recorded["masked_round_drift"]
+    print(f"12 engines_and_privacy masked vs plain round: max_abs_diff {drift:.3e} "
+          f"(want <= {MASKED_TOL})", flush=True)
+    if not drift <= MASKED_TOL:
+        fail("12 engines_and_privacy: the masked round differs from the plain one")
+
+    by_path = {"benches": Counter(), "examples": Counter()}
+    for label, spec, _ in modules:
+        path = "examples" if spec["module"].startswith("examples_torch.") else "benches"
+        by_path[path].update(res[label]["launches"])
+    benches, examples = dict(by_path["benches"]), dict(by_path["examples"])
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f}s; calls "
+          + ", ".join(f"{k} {v['seconds']:.1f}s" for k, v in res.items())
+          + f"; launches benches {benches}, examples {examples}; {smi}", flush=True)
+    return benches, examples
+
+
+def benches_phase_process(smi):
+    """:func:`benches_phase` in a process of its own, which holds no CUDA
+    context and no graph. ``large_graph_smoke`` and ``fed_scale_bench``
+    read their peak RSS as ``VmHWM``, which starts anew at ``exec``, where
+    ``/proc/self/status`` has it. Under a kernel whose ``/proc/self/status``
+    has no ``VmHWM`` (gVisor's, for one) they read ``ru_maxrss``, which
+    starts a child at the peak of the process that launched it: this one
+    holds gigabytes by phase 12, which the large-graph smoke's RSS budget
+    would count as its own. The phase prints to this process's standard
+    output; its launches come back through a file."""
+    import tempfile
+
+    sys.stdout.flush()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "launches.json")
+        code = ("import json, sys\n"
+                f"sys.path.insert(0, {HERE!r})\n"
+                "import chip_smoke\n"
+                "launches = chip_smoke.benches_phase(sys.argv[1])\n"
+                "json.dump(launches, open(sys.argv[2], 'w'))\n")
+        rc = subprocess.run([sys.executable, "-c", code, smi, out], cwd=HERE).returncode
+        if rc != 0:
+            fail(f"phase 12 exited {rc}")
+        benches, examples = json.load(open(out))
+    return benches, examples
 
 
 def main() -> None:
@@ -2851,6 +3137,12 @@ def main() -> None:
     t0 = time.perf_counter()
     paper_phase(dev, nvidia_smi())
     print(f"paper phase: {time.perf_counter() - t0:.1f}s")
+
+    # -- phase 12: the system benchmarks, the smokes and the examples -------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench_launches, example_launches = benches_phase_process(nvidia_smi())
+    print(f"benches and examples phase: {time.perf_counter() - t0:.1f}s")
     print(f"total {time.perf_counter() - t_start:.1f}s")
 
     print(f"gpu: {nvidia_smi()}")
@@ -2859,10 +3151,12 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cheb_attn.cu",
         "replaces": "src/repro/kernels/cheb_attn.py:146",
-        "launches": launches + train_fwd + bucket_launches + cohort_fwd + dist_fwd,
+        "launches": (launches + train_fwd + bucket_launches + cohort_fwd + dist_fwd
+                     + bench_launches["cheb_attn"] + example_launches["cheb_attn"]),
         "launches_by_path": {"serve": launches, "train": train_fwd,
                              "kernel_api": bucket_launches, "cohort": cohort_fwd,
-                             "distributed": dist_fwd},
+                             "distributed": dist_fwd, "benches": bench_launches["cheb_attn"],
+                             "examples": example_launches["cheb_attn"]},
         "max_abs_err": max(errs + [bucket_kernel_err]),
         "bucketed_vs_flat_err": bucket_err,
         "load": fwd_load,
@@ -2878,9 +3172,12 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cheb_attn.cu",
         "replaces": "src/repro/kernels/cheb_attn.py:189",
-        "launches": train_bwd + cohort_bwd + dist_bwd,
+        "launches": (train_bwd + cohort_bwd + dist_bwd + bench_launches["cheb_attn_backward"]
+                     + example_launches["cheb_attn_backward"]),
         "launches_by_path": {"train": train_bwd, "cohort": cohort_bwd,
-                             "distributed": dist_bwd},
+                             "distributed": dist_bwd,
+                             "benches": bench_launches["cheb_attn_backward"],
+                             "examples": example_launches["cheb_attn_backward"]},
         "max_abs_err": max(bwd_errs),
         "ms": ms_bwd,
         "plain_ms": ms_bwd_plain,
@@ -2893,6 +3190,9 @@ def main() -> None:
         "source": f"src/repro_torch/kernels/csrc/{src}.cu",
         "replaces": replaces,
         **api[name],
+        "launches": api[name]["launches"] + bench_launches[name] + example_launches[name],
+        "launches_by_path": {"kernel_api": api[name]["launches"],
+                             "benches": bench_launches[name], "examples": example_launches[name]},
     } for name, src, replaces in (
         ("flash_attn", "flash_attn", "src/repro/kernels/flash_attn.py:96"),
         ("poly_attn", "poly_attn", "src/repro/kernels/poly_attn.py:99"),

@@ -369,6 +369,10 @@ def build_result(
         telemetry.gauge("federated.seconds").set(float(seconds))
         if privacy["epsilon"] is not None:
             telemetry.gauge("privacy.epsilon").set(float(privacy["epsilon"]))
+        if comm is not None:
+            telemetry.gauge("comm.upload_scalars").set(float(comm.upload_scalars))
+            telemetry.gauge("comm.download_scalars").set(float(comm.download_scalars))
+            telemetry.gauge("comm.cross_client_edges").set(float(comm.cross_client_edges))
     return {
         "params": _as_parameters(params),
         "val_curve": val_curve,

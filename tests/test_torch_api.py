@@ -49,8 +49,9 @@ LEFT_OUT = {
     "select_block_sizes", "resolve_interpret", "clear_block_cache",
     # ``cheb_attn`` is an ``autograd.Function`` itself.
     "cheb_attn_diff",
-    # XLA's compile accounting; the manifest counts kernel builds instead.
-    "install_jax_hooks", "jit_compile_count", "jit_compile_seconds",
+    # XLA's compile accounting; the manifest counts kernel builds instead, and
+    # the metrics registry has no ``jax.jit_compiles`` gauge.
+    "install_jax_hooks", "jit_compile_count", "jit_compile_seconds", "jax.jit_compiles",
     # The serving engine's fallback: the port never falls back.
     "kernel_available", "resolve_serving_engine",
     # XLA's simulated host devices (``_compat/`` likewise has no counterpart).

@@ -22,8 +22,9 @@ shard_map backend on the card: one process (one-lane cohorts) against the
 loop with exact launch counts, two ranks sharing card 0 over gloo, and
 two ranks with a card each over NCCL (skipped with fewer than two cards).
 The dense GAT/GCN forms against the neighbour-list forms and
-``moments_direct`` against the CPU on ``cora_like``, and the theorem drivers
-of ``benchmarks_torch`` on the card against the CPU.
+``moments_direct`` against the CPU on ``cora_like``, the theorem drivers
+of ``benchmarks_torch`` on the card against the CPU, and the rows of
+``benchmarks_torch/kernel_bench.py`` with their launch counts.
 
 Imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -1181,3 +1182,31 @@ def test_cuda_theorem_drivers_match_the_cpu(name):
                     assert a[k] == pytest.approx(want, rel=1e-3)
             else:
                 assert a[k] == pytest.approx(want, rel=1e-4, abs=1e-6), (k, a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [True, False], ids=["fast", "full"])
+def test_cuda_kernel_bench_rows_hold_the_tolerances_and_launch_counts(tmp_path, monkeypatch,
+                                                                     fast):
+    """``benchmarks_torch/kernel_bench.py`` on the card: every row within
+    its kernel's tolerance (cheb_attn rtol 1e-4 / atol 1e-5, flash f32
+    2e-4 / 2e-5, poly f32 5e-4, as phase 5 holds them), and exactly one
+    warm-up plus the timed calls launched of each kernel."""
+    _needs_card()
+    from benchmarks_torch import common, kernel_bench
+
+    monkeypatch.setattr(common, "RESULTS_DIR", tmp_path)
+    assert kernel_bench.TOLERANCES == {
+        "cheb_attn": (1e-4, 1e-5), "cheb_attn_layer": (1e-4, 1e-5),
+        "cheb_attn_heads": (1e-4, 1e-5), "flash_attn": (2e-4, 2e-5), "poly_attn": (5e-4, 5e-4)}
+    counters = {"cheb_attn": cheb_attn, "cheb_attn_backward": cheb_attn_backward,
+                "flash_attn": flash_attn, "poly_attn": poly_attn}
+    before = {name: fn.launches for name, fn in counters.items()}
+    rows = kernel_bench.run(fast=fast, device="cuda")
+    got = {name: fn.launches - before[name] for name, fn in counters.items()}
+    assert got == kernel_bench.expected_launches(fast)
+    assert len(rows) == (5 if fast else 6)
+    for row in rows:
+        assert 0.0 <= row["err_over_tol"] <= 1.0, row
+        assert all(v > 0 for k, v in row.items() if k.startswith("us_")), row
+    assert (tmp_path / "BENCH_kernel.json").exists()

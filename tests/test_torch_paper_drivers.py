@@ -13,8 +13,9 @@ reference's (``benchmarks/``), held as far as torch can follow
   (maxima of float32 errors), ``err_power`` at rtol 1e-3 where finite, and
   ``thm3_satisfied`` equal.
 
-Also: discovery finds exactly the eight drivers, and importing them loads
-neither ``jax`` nor ``repro``.
+Also: discovery finds exactly the eight drivers and the six system
+benchmarks (the reference's set), and importing them, the regression guard,
+the two smokes and the four examples loads neither ``jax`` nor ``repro``.
 """
 import inspect
 import json
@@ -52,6 +53,10 @@ POWER_RTOL = 1e-3                # err_power at high degree: cancellation in the
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DRIVERS = ["fig2_clients", "fig3_comm", "fig5_degree", "fig6_vector", "stability_basis",
            "table1_accuracy", "thm2_cheb_error", "thm35_error_prop"]
+SYSTEM_BENCHES = ["fed_scale_bench", "graph_bench", "kernel_bench", "privacy_audit",
+                  "privacy_tradeoff", "serve_bench"]
+SMOKES = ["large_graph_smoke", "telemetry_smoke"]
+EXAMPLES = ["e2e_federated_training", "engines_and_privacy", "lm_train_smoke", "quickstart"]
 
 
 def _reference_params(seed):
@@ -160,25 +165,46 @@ def test_fig6_comm_columns_are_the_reference_s(monkeypatch, fast):
 
 
 def test_discovery_finds_exactly_the_eight_drivers():
+    """Discovery finds the eight paper drivers and the six system
+    benchmarks, the modules the reference's discovery finds, and nothing
+    else on disk but the two smokes (no ``run``/``derived``, as in the
+    reference). Each ``run`` takes the reference's arguments and then
+    ``device``, before a trailing ``**_``."""
+    from benchmarks.run import discover_benches as reference_discover
+
     benches = discover_benches()
-    assert [name for name, _ in benches] == DRIVERS
+    names = [name for name, _ in benches]
+    assert names == sorted(DRIVERS + SYSTEM_BENCHES)
+    assert names == [name for name, _ in reference_discover()]
     on_disk = sorted(p.stem for p in (ROOT / "benchmarks_torch").glob("*.py")
                      if p.stem not in _NON_BENCHES and not p.stem.startswith("_"))
-    assert on_disk == DRIVERS
+    assert on_disk == sorted(names + SMOKES)
     for name, mod in benches:
         assert mod.__name__ == f"benchmarks_torch.{name}"
         ref = __import__(f"benchmarks.{name}", fromlist=["run"])
         assert callable(mod.run) and callable(mod.derived)
-        # The reference's arguments, plus the device.
-        params = list(inspect.signature(mod.run).parameters)
-        assert params == list(inspect.signature(ref.run).parameters) + ["device"]
+        # The reference's arguments, plus the device (before a trailing **_).
+        ref_params = list(inspect.signature(ref.run).parameters.values())
+        want = [p.name for p in ref_params]
+        if ref_params and ref_params[-1].kind is inspect.Parameter.VAR_KEYWORD:
+            want.insert(len(want) - 1, "device")
+        else:
+            want.append("device")
+        assert list(inspect.signature(mod.run).parameters) == want
 
 
 def test_drivers_import_neither_jax_nor_the_reference():
-    code = ("import sys\n"
+    """Every discovered bench, the regression guard, the two smokes and the
+    four examples load neither ``jax`` nor ``repro`` nor ``benchmarks``."""
+    others = ["benchmarks_torch.check_regression"] + [
+        f"benchmarks_torch.{name}" for name in SMOKES] + [
+        f"examples_torch.{name}" for name in EXAMPLES]
+    code = ("import importlib, sys\n"
             "from benchmarks_torch.run import discover_benches\n"
             "import benchmarks_torch.common\n"
             "names = [n for n, _ in discover_benches()]\n"
+            f"for m in {others!r}:\n"
+            "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', "
             "'benchmarks'))\n"
             "print(len(names), bad)\n")
@@ -187,7 +213,7 @@ def test_drivers_import_neither_jax_nor_the_reference():
         env={**os.environ, "PYTHONPATH": f"{ROOT / 'src'}{os.pathsep}{ROOT}"},
     )
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split(maxsplit=1) == ["8", "[]\n"]
+    assert proc.stdout.split(maxsplit=1) == ["14", "[]\n"]
 
 
 def test_figure_cli_saves_rows_and_prints_the_csv(tmp_path, monkeypatch, capsys):
