@@ -159,10 +159,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    steps,dryrun}``, ``moe_ffn_sharded``): plain PyTorch and collectives, so
    every kernel's count, zeroed just before each part (in each rank's
    process, just before each sharded step), must read 0 just after it.
-   10a: ``launch.dryrun.run_one`` for the ten archs x four shapes on 16x16
-   and 2x16x16 (megatron) and 16x16 fsdp, every record ``ok``; the roofline
-   table of the 16x16 records; dbrx-132b ``train_4k``'s per-device argument
-   bytes under megatron, zero1 and fsdp. 10b: a (2, 2) mesh of four ranks
+   10a: ``launch.dryrun.run_one`` (each record's per-device program
+   traced over meta tensors by ``analysis.program.trace_step``, on the
+   host, in ``DRYRUN_WORKERS`` worker processes started after phase 5 that
+   run beside phases 6-9, each worker's own counts zeroed just before each
+   record and read just after) for the ten archs at
+   ``train_4k`` and ``decode_32k`` and rwkv6-1.6b and hymba-1.5b at
+   ``prefill_32k`` on 16x16 megatron, and yi-6b ``train_4k`` on 2x16x16
+   and under 16x16 fsdp, every record ``ok``; each record's flops,
+   traffic, collectives, transcendentals, temp bytes and bottleneck; the
+   roofline table of the 16x16 megatron records with T_collective;
+   dbrx-132b ``train_4k``'s per-device argument bytes under megatron, zero1
+   and fsdp. The same workers trace 10c's program on each of the four
+   ranks, for each of its steps. 10b: a (2, 2) mesh of four ranks
    sharing the card (``launch`` of ``MESH_WORKER``; gloo over the card's
    tensors): ``granite-moe-1b-a400m`` at full width, float32, 4 layers,
    capacity factor E, batch 4 x 128 from the Zipf stream; one train step
@@ -178,7 +187,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    config (bf16, 24 layers) on the (2, 2) mesh, megatron, batch 4 x 1024
    (cut only if the four ranks' reckoned bytes exceed ``RANKS_GIB``; the
    reckoning is printed first): 2 steps, each rank's seconds, peak GiB and
-   bytes by collective per step; finite losses, the first within 1.5 of
+   bytes by collective per step, equal to the rank's traced program's
+   (calls and bytes by kind); finite losses, the first within 1.5 of
    log(49408), params float32 after the first step.
 
 11. The reference API and the paper's experiment drivers: plain PyTorch
@@ -195,9 +205,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``moments_direct`` on the card against a CPU copy (rtol 1e-5 / atol
    1e-6). 11b: each paper driver that ``benchmarks_torch.run``'s discovery
    finds (its 14 modules less phase 12's six system benchmarks) runs its
-   ``fast`` sweep on the card (``run(fast=True, device=...)``): its
-   rows, local steps (calls of the trainer's ``grad_of``), seconds and
-   ``derived`` line; thm2's and fig3's rows equal to the CPU's, thm35's
+   ``fast`` sweep on the card (``run(fast=True, device=...)``), the eight
+   side by side in ``POOL_WORKERS`` worker processes (host-bound loops;
+   each worker's counts zeroed just before its driver and read just
+   after): its rows, local steps (calls of the trainer's ``grad_of``),
+   seconds and ``derived`` line; thm2's and fig3's rows equal to the CPU's, thm35's
    and stability's within rtol 1e-4 / atol 1e-6 of the CPU's (``err_power``
    rtol 1e-3 where finite, flags equal), every accuracy finite and in
    [0, 1].
@@ -2297,43 +2309,150 @@ def reckon_scale_gib(cfg, batch, seq, mesh) -> dict:
             "total": max(backward, 2 * state + temps)}
 
 
-def mesh_phase(smi):
-    """Phase 10: the mesh layer (see the module docstring)."""
-    from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, get_config
-    from repro_torch.analysis.report import roofline_table
+# 10a's records: every arch at train_4k and decode_32k and the two recurrent
+# archs at prefill_32k on 16x16 megatron, and yi-6b train_4k on 2x16x16 and
+# under 16x16 fsdp; each traced on the host in a worker process.
+def dryrun_records():
+    from repro_torch.configs import ASSIGNED_ARCHS
+
+    return ([(a, s, False, "megatron") for a in ASSIGNED_ARCHS for s in ("train_4k", "decode_32k")]
+            + [(a, "prefill_32k", False, "megatron") for a in ("rwkv6-1.6b", "hymba-1.5b")]
+            + [("yi-6b", "train_4k", True, "megatron"), ("yi-6b", "train_4k", False, "fsdp")])
+
+
+POOL_WORKERS = 6           # 11b's drivers, side by side
+DRYRUN_WORKERS = 3         # 10a's traces, beside phases 6-9
+
+
+def pool(workers=POOL_WORKERS):
+    """Worker processes for the host-side parts of phases 10a and 11b (fresh
+    interpreters: the card's context is not inherited)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    return ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=_pool_init)
+
+
+def _pool_init():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def dryrun_record(arch, shape, multi_pod, strategy):
+    """One 10a record, traced in a worker; the worker's kernel counts zeroed
+    just before and read just after."""
     from repro_torch.launch.dryrun import run_one
 
-    # -- 10a: the analytic dry-run -----------------------------------------
-    t0 = time.perf_counter()
     zero_kernel_counts()
-    recs = {}
-    for tag, multi, strategy in (("16x16", False, "megatron"), ("2x16x16", True, "megatron"),
-                                 ("16x16 fsdp", False, "fsdp")):
-        recs[tag] = [run_one(a, s, multi, strategy) for a in ASSIGNED_ARCHS for s in INPUT_SHAPES]
-        bad = [(r["arch"], r["shape"], r.get("error")) for r in recs[tag] if r["status"] != "ok"]
-        if bad or len(recs[tag]) != 40:
-            fail(f"10a {tag}: records not ok: {bad[:4]}")
-    dbrx = {s: run_one("dbrx-132b", "train_4k", False, s)["memory_analysis"]
-            for s in ("megatron", "zero1", "fsdp")}
-    check_no_kernel_launched("10a (dry-run)")
-    print(f"10a dry-run: 120 records ok (10 archs x 4 shapes on 16x16 and 2x16x16, megatron; "
-          f"16x16 fsdp) in {time.perf_counter() - t0:.1f} s; dbrx-132b train_4k on 16x16, "
-          "per-device argument bytes: " + ", ".join(
-              f"{s} {m['argument_size_in_bytes']:,} ({m['argument_size_in_bytes'] / 2**30:.2f} "
-              f"GiB)" for s, m in dbrx.items()), flush=True)
-    print("10a roofline, 16x16 megatron (H100 constants; T_collective needs XLA):", flush=True)
-    print(roofline_table(sorted(recs["16x16"], key=lambda r: (r["arch"], r["shape"]))),
-          flush=True)
-    t10a = time.perf_counter() - t0
+    rec = run_one(arch, shape, multi_pod, strategy=strategy)
+    return rec, {fn.__name__: fn.launches for fn in kernel_counters()}
 
-    # -- 10c's reckoning, before any rank starts ----------------------------
-    cfg = get_config(GRANITE)
+
+def traced_collectives(rank, batch, seq, step):
+    """10c's collectives on ``rank``, traced: the (2, 2) megatron train step
+    of granite's full config, its params bf16 (``step`` 0) or float32 (after
+    the first AdamW update)."""
+    from repro_torch.analysis.program import trace_step
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import build_sharded_step
+
+    mesh = make_debug_mesh(2, 2)
+    fn, args, in_sh, _ = build_sharded_step(get_config(GRANITE),
+                                            InputShape("t", seq, batch, "train"), mesh)
+    if step:
+        args = (fn.out_specs[0],) + tuple(args[1:])
+    cost, _, _ = trace_step(fn, args, in_sh, mesh, rank)
+    return {k.replace("-", "_"): {"calls": cost.collective_calls_by_kind[k],
+                                  "bytes": int(cost.collective_by_kind[k])}
+            for k in cost.collective_by_kind}
+
+
+def scale_seq():
+    """10c's sequence (cut only if the four ranks' reckoned bytes exceed
+    ``RANKS_GIB``) and its reckoning."""
+    from repro_torch.configs import get_config
+
     seq = SCALE_S
     while True:
-        rk = reckon_scale_gib(cfg, SCALE_B, seq, (2, 2))
+        rk = reckon_scale_gib(get_config(GRANITE), SCALE_B, seq, (2, 2))
         if 4 * rk["total"] / 2**30 <= RANKS_GIB or seq <= 128:
-            break
+            return seq, rk
         seq //= 2
+
+
+def start_dryrun():
+    """10a's records and 10c's traces, submitted to ``DRYRUN_WORKERS``
+    processes that run on the host beside the phases before 10; phase 10
+    reads them (``mesh_phase``)."""
+    seq, _ = scale_seq()
+    workers = pool(DRYRUN_WORKERS)
+    recs = [workers.submit(dryrun_record, *r) for r in dryrun_records()]
+    traces = {(r, i): workers.submit(traced_collectives, r, SCALE_B, seq, i)
+              for i in range(SCALE_STEPS) for r in range(4)}
+    return workers, recs, traces, time.perf_counter()
+
+
+def mesh_phase(smi, dryrun):
+    """Phase 10: the mesh layer (see the module docstring); ``dryrun`` is
+    what ``start_dryrun`` returned."""
+    from repro_torch.analysis.report import roofline_table
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch.dryrun import per_device_bytes
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_sharded_step
+
+    cfg = get_config(GRANITE)
+    seq, rk = scale_seq()
+
+    # -- 10a: the dry-run, each record's program traced ---------------------
+    t0 = time.perf_counter()
+    zero_kernel_counts()
+    workers, recs, traces, started = dryrun
+    recs = [f.result() for f in recs]
+    traces = {k: f.result() for k, f in traces.items()}
+    workers.shutdown()
+    check_no_kernel_launched("10a (dry-run, this process)")
+    launched = [(r["arch"], r["shape"], n) for r, n in recs if any(n.values())]
+    if launched:
+        fail(f"10a: a record's worker launched a kernel: {launched[:4]}")
+    recs = [r for r, _ in recs]
+    bad = [(r["arch"], r["shape"], r["mesh"], r.get("error")) for r in recs if r["status"] != "ok"]
+    if bad:
+        fail(f"10a: records not ok: {bad[:4]}")
+    t10a = time.perf_counter() - t0
+    shape = INPUT_SHAPES["train_4k"]
+    dbrx = {}
+    for s in ("megatron", "zero1", "fsdp"):
+        fn, args, in_sh, _ = build_sharded_step(get_config("dbrx-132b"), shape,
+                                                make_production_mesh(), s)
+        dbrx[s] = per_device_bytes(args, in_sh)
+    print(f"10a dry-run: {len(recs)} records ok, each program traced ({len(recs) - 2} on 16x16 "
+          f"megatron, yi-6b train_4k on 2x16x16 and under 16x16 fsdp; {DRYRUN_WORKERS} worker "
+          f"processes beside phases 6-9, every worker's kernel counts 0): "
+          f"{sum(r['total_s'] for r in recs):.1f} s of tracing, all in hand "
+          f"{t0 + t10a - started:.1f} s after their submission, {t10a:.1f} s waited in phase 10; "
+          "trace seconds " + ", ".join(f"{r['arch']} {r['shape']} {r['mesh']} {r['strategy']} "
+                                       f"{r['total_s']}" for r in recs), flush=True)
+    print("10a dbrx-132b train_4k on 16x16, per-device argument bytes: " + ", ".join(
+        f"{s} {b:,} ({b / 2**30:.2f} GiB)" for s, b in dbrx.items()), flush=True)
+    for r in recs:
+        c, m = r["hlo_cost"], r["memory_analysis"]
+        print(f"10a {r['arch']} {r['shape']} {r['mesh']} {r['strategy']}: flops "
+              f"{c['flops']:.4e} (loop bodies once {c['flops_unscaled']:.4e}), traffic "
+              f"{c['traffic_bytes']:.4e} B, collectives {c['collective_by_kind']} calls "
+              f"{c['collective_calls_by_kind']}, transcendentals {c['transcendentals']:.4e}, "
+              f"temp {m['temp_size_in_bytes'] / 2**30:.2f} GiB, useful flops ratio "
+              f"{r['useful_flops_ratio']:.4f}, bottleneck {r['roofline']['bottleneck']}",
+              flush=True)
+    print("10a roofline, 16x16 megatron (H100 constants; the traced programs' flops and "
+          "collectives):", flush=True)
+    print(roofline_table(sorted((r for r in recs if r["mesh"] == "16x16"
+                                 and r["strategy"] == "megatron"),
+                                key=lambda r: (r["arch"], r["shape"]))), flush=True)
+
     print(f"10c reckoning, {GRANITE} full config, (2, 2) megatron, batch {SCALE_B} x seq {seq}: "
           "per rank " + ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in rk.items())
           + f"; four ranks {4 * rk['total'] / 2**30:.2f} GiB of {RANKS_GIB} GiB"
@@ -2356,6 +2475,14 @@ def mesh_phase(smi):
               f": s per rank {[round(r['steps'][part]['s'], 3) for r in ranks]}, peak GiB per "
               f"rank {[round(r['steps'][part]['peak_gib'], 2) for r in ranks]}, collectives per "
               f"rank {[r['steps'][part]['traffic'] for r in ranks]}; {smi}", flush=True)
+        for r in ranks:
+            measured = {k: v for k, v in r["steps"][part]["traffic"].items() if v["calls"]}
+            if measured != traces[(r["rank"], i)]:
+                fail(f"10c step {i}: rank {r['rank']}'s collectives {measured} differ from its "
+                     f"trace {traces[(r['rank'], i)]}")
+    print(f"10c: every rank's collectives in both steps equal its traced program's (calls and "
+          f"bytes by kind): {[traces[(r, 0)] for r in range(4)]} (step 0), "
+          f"{[traces[(r, 1)] for r in range(4)]} (step 1)", flush=True)
     sc = ranks[0]["scale"]
     print(f"10c losses {sc['losses']}, param dtypes after {SCALE_STEPS} steps {sc['dtypes']}",
           flush=True)
@@ -2417,13 +2544,11 @@ def paper_phase(dev, smi):
     eight paper drivers of ``benchmarks_torch`` at their ``fast`` sweeps
     (11b)."""
     from benchmarks_torch.run import discover_benches
-    from repro_torch._device import sync
     from repro_torch.core import (FedGATConfig, gat_forward, gcn_forward, init_gcn_params,
                                   init_params, moments_direct, normalized_adjacency)
     from repro_torch.core.fedgat_model import graph_tensors
     from repro_torch.core.gcn import gcn_forward_nbr, normalized_nbr_coeffs
     from repro_torch.core.poly_attention import edge_scores, head_projections
-    from repro_torch.federated import trainer as fed_trainer
     from repro_torch.graphs import (DenseAdjacencyError, dense_view_count, make_cora_like,
                                     make_sbm)
 
@@ -2480,28 +2605,18 @@ def paper_phase(dev, smi):
           flush=True)
     if len(names) != 8 or len(found) != 8 + len(SYSTEM_BENCHES):
         fail(f"11b: discovered {len(found)} modules, {len(names)} drivers; want 14 and 8")
-    steps = {"n": 0}
-    grad_of = fed_trainer.grad_of
-
-    def counted_grad_of(*args, **kwargs):     # one call a local (or centralised) step
-        steps["n"] += 1
-        return grad_of(*args, **kwargs)
-
     t0 = time.perf_counter()
     total_steps, seconds = 0, {}
-    fed_trainer.grad_of = counted_grad_of
-    try:
+    with pool() as workers:                 # the drivers are host-bound: run side by side
+        runs = {name: workers.submit(paper_driver, name, str(dev)) for name in names}
         for name, mod in benches:
-            zero_kernel_counts()
-            steps["n"] = 0
-            t1 = time.perf_counter()
-            rows = mod.run(fast=True, device=dev)
-            sync(dev)
-            seconds[name] = time.perf_counter() - t1
-            check_no_kernel_launched(f"11b {name}")
-            total_steps += steps["n"]
-            print(f"11b {name}: {len(rows)} rows, {steps['n']} local steps, "
-                  f"{seconds[name]:.2f} s; {mod.derived(rows)}; {smi}", flush=True)
+            rows, n_steps, seconds[name], launches, derived = runs[name].result()
+            print(f"11b {name}: {len(rows)} rows, {n_steps} local steps, {seconds[name]:.2f} s "
+                  f"(in a worker, beside {min(POOL_WORKERS, len(names)) - 1} others); "
+                  f"{derived}; launches {launches} (want all 0); {smi}", flush=True)
+            if any(launches.values()):
+                fail(f"11b {name} launched a kernel")
+            total_steps += n_steps
             accs = [r[k] for r in rows for k in ("acc", "std") if k in r]
             if not all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs):
                 fail(f"11b {name}: an accuracy is not finite or not in [0, 1]")
@@ -2514,11 +2629,40 @@ def paper_phase(dev, smi):
                 worst = rows_close(f"11b {name}", rows, mod.run(fast=True, device="cpu"))
                 print(f"11b {name}: card vs CPU max abs diff {worst:.3e} (rtol {PAPER_RTOL}, "
                       f"atol {PAPER_ATOL}; err_power rtol {POWER_RTOL})", flush=True)
-    finally:
-        fed_trainer.grad_of = grad_of
     print(f"phase 11 parts: 11a {t11a:.1f}s, 11b {time.perf_counter() - t0:.1f}s "
           f"({total_steps} local steps; " + ", ".join(f"{k} {v:.1f}s" for k, v in seconds.items())
           + f"); {smi}", flush=True)
+
+
+def paper_driver(name, device):
+    """One paper driver's ``fast`` sweep on ``device``, in a worker process:
+    its rows, local steps (calls of the trainer's ``grad_of``), seconds,
+    kernel launches (zeroed just before, read just after) and derived line."""
+    import importlib
+
+    from repro_torch._device import sync
+    from repro_torch.federated import trainer as fed_trainer
+
+    mod = importlib.import_module(f"benchmarks_torch.{name}")
+    dev = torch.device(device)
+    steps = {"n": 0}
+    grad_of = fed_trainer.grad_of
+
+    def counted_grad_of(*args, **kwargs):     # one call a local (or centralised) step
+        steps["n"] += 1
+        return grad_of(*args, **kwargs)
+
+    fed_trainer.grad_of = counted_grad_of
+    zero_kernel_counts()
+    try:
+        t0 = time.perf_counter()
+        rows = mod.run(fast=True, device=dev)
+        sync(dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        fed_trainer.grad_of = grad_of
+    launches = {fn.__name__: fn.launches for fn in kernel_counters()}
+    return rows, steps["n"], seconds, launches, mod.derived(rows)
 
 
 # -- phase 12: the system benchmarks, the two smokes and the examples ---------
@@ -3097,6 +3241,9 @@ def main() -> None:
         dev, g, params[0], coeffs, h, nbr_idx, nbr_mask)
     print(f"kernel API phase: {time.perf_counter() - t0:.1f}s")
 
+    # -- phase 10a's traces start on the host, beside phases 6-9 -----------
+    dryrun = start_dryrun()
+
     # -- phase 6: the pack engines (no kernel on this path) ----------------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3125,7 +3272,7 @@ def main() -> None:
     # -- phase 10: the mesh layer (no kernel on this path) -----------------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mesh_phase(nvidia_smi())
+    mesh_phase(nvidia_smi(), dryrun)
     print(f"mesh phase: {time.perf_counter() - t0:.1f}s")
     views = dense_view_count()
     print(f"dense (N, N) adjacency views in phases 3-10: {views} (want 0)", flush=True)

@@ -1,6 +1,7 @@
 """repro_torch.analysis — the paper's closed-form error bounds (a copy of
-``repro/analysis/error_bounds.py``), and in ``hlo`` and ``report`` the
-dry-run's roofline arithmetic and table."""
+``repro/analysis/error_bounds.py``), in ``program`` the per-device cost of
+a traced sharded step, and in ``hlo`` and ``report`` the dry-run's
+collective parser, roofline arithmetic and table."""
 from repro_torch.analysis.error_bounds import (
     series_envelope,
     thm3_coefficient_bound,

@@ -1,9 +1,14 @@
-"""Roofline arithmetic (the port of the analytic half of
-``repro/analysis/hlo.py``: ``roofline_terms``, ``model_flops``,
-``total_params``, ``model_traffic`` and ``active_params``, copied).
+"""Collective bytes from a program listing, and the roofline arithmetic (the
+port of ``repro/analysis/hlo.py``).
 
-The HLO-text parsers (``parse_collectives``, ``analysis/hlo_graph.py``)
-stay out: they read XLA's compiled HLO, and the port has no XLA.
+:func:`parse_collectives` reads the listing of a traced rank's step
+(``analysis/program.py``), which writes each collective as HLO writes it:
+``%n = bf16[4096,4096] all-gather(...)``, its result shape between the
+``=`` and the kind. It sums the result bytes of every communication op, the
+reference's per-chip traffic proxy: for an all-reduce its operand, for an
+all-gather the bytes each rank receives. ``roofline_terms``,
+``model_flops``, ``total_params``, ``model_traffic`` and ``active_params``
+are copies.
 
 The chip constants are keyword arguments that default to one NVIDIA H100
 SXM's, from NVIDIA's data sheet (dense rates, 700 W): 989 TFLOP/s in
@@ -12,7 +17,80 @@ directions). A caller passes another chip's constants to reckon for it.
 """
 from __future__ import annotations
 
+import re
+from collections import defaultdict
+from dataclasses import dataclass, field
 from typing import Dict
+
+COLLECTIVE_OPS = (
+    "all-reduce",
+    "all-gather",
+    "reduce-scatter",
+    "all-to-all",
+    "collective-permute",
+)
+
+_DTYPE_BYTES = {
+    "pred": 1, "s8": 1, "u8": 1, "f8e4m3fn": 1, "f8e5m2": 1,
+    "s16": 2, "u16": 2, "f16": 2, "bf16": 2,
+    "s32": 4, "u32": 4, "f32": 4,
+    "s64": 8, "u64": 8, "f64": 8, "c64": 8, "c128": 16,
+}
+
+_SHAPE_RE = re.compile(r"(\w+)\[([\d,]*)\]")
+
+
+def _shape_bytes(dtype: str, dims: str) -> int:
+    nb = _DTYPE_BYTES.get(dtype)
+    if nb is None:
+        return 0
+    n = 1
+    for d in dims.split(","):
+        if d:
+            n *= int(d)
+    return n * nb
+
+
+@dataclass
+class CollectiveStats:
+    bytes_by_kind: Dict[str, int] = field(default_factory=lambda: defaultdict(int))
+    count_by_kind: Dict[str, int] = field(default_factory=lambda: defaultdict(int))
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.bytes_by_kind.values())
+
+    def to_dict(self) -> Dict:
+        return {
+            "total_bytes": self.total_bytes,
+            "bytes_by_kind": dict(self.bytes_by_kind),
+            "count_by_kind": dict(self.count_by_kind),
+        }
+
+
+def parse_collectives(hlo_text: str) -> CollectiveStats:
+    stats = CollectiveStats()
+    for line in hlo_text.splitlines():
+        for op in COLLECTIVE_OPS:
+            tok = f" {op}("
+            # skip -start/-done duplicates (count the -start, which carries
+            # the shape; plain ops appear once)
+            if tok not in line and f" {op}-start(" not in line:
+                continue
+            if f" {op}-done(" in line:
+                continue
+            eq = line.find("=")
+            if eq < 0:
+                continue
+            opi = line.find(op, eq)
+            lhs = line[eq + 1 : opi]
+            nbytes = sum(_shape_bytes(dt, dims) for dt, dims in _SHAPE_RE.findall(lhs))
+            if nbytes:
+                stats.bytes_by_kind[op] += nbytes
+                stats.count_by_kind[op] += 1
+            break
+    return stats
+
 
 H100_PEAK_FLOPS = 989e12     # bf16 FLOP/s, dense
 H100_HBM_BW = 3.35e12        # bytes/s

@@ -3,8 +3,8 @@ reads dry-run JSON records and prints the roofline markdown table.
 
   PYTHONPATH=src python -m repro_torch.analysis.report [--dir build/dryrun]
 
-The port's records carry no collective term and no HLO flop count (they
-need XLA's compiled program); their columns print ``-``.
+T_collective and MODEL_FLOPs/HLO_FLOPs come from the traced program
+(``analysis/program.py``); a record without them prints ``-``.
 """
 from __future__ import annotations
 

@@ -6,17 +6,24 @@ Usage:
   python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k
   python -m repro_torch.launch.dryrun --arch all --shape all [--multi-pod]
   python -m repro_torch.launch.dryrun ... --strategy fsdp --out build/dryrun
+  python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --save-hlo step.txt
 
 The reference lowers and compiles each step for 512 simulated devices and
-reads XLA's analyses. The port has no compiler, so a record holds what the
-placements and the model's arithmetic give: the per-device argument and
-output bytes (``memory_analysis``, reckoned from each leaf's placement),
-``model_flops_*``, ``model_traffic_global``, ``active_params``,
-``total_params``, and a ``roofline`` from the model flops and the analytic
-traffic under the H100's constants. What needs XLA's compiled program stays
-out: ``lower_s``, ``compile_s``, ``hlo_bytes``, ``hlo_cost``,
-``cost_analysis``, ``useful_flops_ratio`` and the roofline's
-``memory_s_hlo_upper`` and collective term.
+reads XLA's analyses of the per-device program. The port's per-device
+program is one rank's eager step, which ``analysis.program.trace_step``
+runs over meta tensors on a traced mesh (rank 0; every rank of a
+production mesh runs the same program on blocks of the same shapes). A
+record carries the reference's fields: ``memory_analysis`` (the argument
+and output bytes reckoned from each leaf's placement, and the trace's peak
+temporaries), ``cost_analysis`` (flops, bytes accessed and transcendentals
+with each loop body once, as XLA counts them), ``hlo_bytes`` (the
+listing's length; ``--save-hlo`` writes the listing), ``hlo_cost`` (the
+trip-count-scaled totals, collectives by kind), the roofline from the
+traced flops, the analytic traffic and the traced collective bytes under
+the H100's constants (``memory_s_hlo_upper`` from the traced traffic),
+``useful_flops_ratio``, the model's flops and traffic and the param
+counts. Only ``lower_s`` and ``compile_s`` stay out: an eager step is
+neither lowered nor compiled.
 """
 from __future__ import annotations
 
@@ -30,12 +37,14 @@ import numpy as np
 
 from repro_torch._tree import tree_leaves
 from repro_torch.analysis.hlo import (
+    H100_HBM_BW,
     active_params,
     model_flops,
     model_traffic,
     roofline_terms,
     total_params,
 )
+from repro_torch.analysis.program import trace_step
 from repro_torch.analysis.report import DEFAULT_DIR
 from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, get_config
 from repro_torch.launch.mesh import make_production_mesh, spec_axes
@@ -54,8 +63,8 @@ def per_device_bytes(specs, shardings) -> int:
     return total
 
 
-def run_one(arch: str, shape_name: str, multi_pod: bool, strategy: str = "megatron", *,
-            mesh=None, cfg=None, shape=None) -> dict:
+def run_one(arch: str, shape_name: str, multi_pod: bool, save_hlo: str | None = None,
+            strategy: str = "megatron", *, mesh=None, cfg=None, shape=None) -> dict:
     """One (arch, shape, mesh) record. ``mesh``/``cfg``/``shape`` override
     the production defaults (a small mesh, a reduced config)."""
     cfg = get_config(arch) if cfg is None else cfg
@@ -74,18 +83,31 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, strategy: str = "megatr
     t0 = time.time()
     try:
         fn, args, in_sh, out_sh = build_sharded_step(cfg, shape, mesh, strategy=strategy)
+        cost, listing, temp = trace_step(fn, args, in_sh, mesh)
         rec["memory_analysis"] = {
             "argument_size_in_bytes": per_device_bytes(args, in_sh),
             "output_size_in_bytes": per_device_bytes(fn.out_specs, out_sh),
+            "temp_size_in_bytes": temp,
         }
+        rec["cost_analysis"] = {
+            "flops": cost.flops_unscaled,
+            "bytes_accessed": cost.traffic_bytes_unscaled,
+            "transcendentals": cost.transcendentals_unscaled,
+        }
+        rec["hlo_bytes"] = len(listing)
+        if save_hlo:
+            pathlib.Path(save_hlo).write_text(listing)
+        rec["hlo_cost"] = cost.to_dict()
         mt = model_traffic(cfg, shape)
         rec["model_traffic_global"] = mt
+        # per chip: the traced program's flops and collectives, the analytic
+        # traffic split evenly (the traced traffic, unfused, as the upper bound)
+        rec["roofline"] = roofline_terms(cost.flops, mt / chips, cost.collective_bytes, chips=1)
+        rec["roofline"]["memory_s_hlo_upper"] = cost.traffic_bytes / H100_HBM_BW
         mf = model_flops(cfg, shape, include_backward=(shape.kind == "train"))
-        # per chip: the model's flops and the analytic traffic, split evenly
-        rec["roofline"] = roofline_terms(mf / chips, mt / chips, 0.0, chips=1)
-        del rec["roofline"]["collective_s"]
         rec["model_flops_global"] = mf
         rec["model_flops_per_chip"] = mf / chips
+        rec["useful_flops_ratio"] = (mf / chips / cost.flops) if cost.flops > 0 else None
         rec["active_params"] = active_params(cfg)
         rec["total_params"] = total_params(cfg)
     except Exception as e:  # a failed record is written, and the run goes on
@@ -103,11 +125,9 @@ def main(argv=None) -> None:
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--out", default=DEFAULT_DIR)
     ap.add_argument("--save-hlo", default=None,
-                    help="refused: the port compiles no XLA program, so it has no HLO")
+                    help="write the traced program's listing here (the last record's)")
     ap.add_argument("--strategy", default="megatron", choices=["megatron", "fsdp"])
     args = ap.parse_args(argv)
-    if args.save_hlo is not None:
-        ap.error("--save-hlo: the port compiles no XLA program, so there is no HLO to save")
 
     archs = ASSIGNED_ARCHS if args.arch == "all" else [args.arch]
     shapes = list(INPUT_SHAPES) if args.shape == "all" else [args.shape]
@@ -120,7 +140,7 @@ def main(argv=None) -> None:
             mesh_tag = "2x16x16" if args.multi_pod else "16x16"
             if args.strategy != "megatron":
                 mesh_tag += f"__{args.strategy}"
-            rec = run_one(arch, shape, args.multi_pod, args.strategy)
+            rec = run_one(arch, shape, args.multi_pod, args.save_hlo, args.strategy)
             path = outdir / f"{arch}__{shape}__{mesh_tag}.json"
             path.write_text(json.dumps(rec, indent=1))
             ok = rec["status"] == "ok"
@@ -129,7 +149,8 @@ def main(argv=None) -> None:
             arg_gib = rec.get("memory_analysis", {}).get("argument_size_in_bytes", 0) / 2**30
             print(
                 f"[{'OK' if ok else 'FAIL'}] {arch} {shape} {mesh_tag} "
-                f"args/device={arg_gib:.3f}GiB bottleneck={rl.get('bottleneck', '-')}"
+                f"trace={rec['total_s']}s args/device={arg_gib:.3f}GiB "
+                f"bottleneck={rl.get('bottleneck', '-')}"
                 + ("" if ok else f"  err={rec.get('error')}"),
                 flush=True)
     raise SystemExit(1 if n_fail else 0)

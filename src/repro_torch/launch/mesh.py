@@ -14,11 +14,15 @@ that differ only along some subset of the axes, so a collective can run
 over any axis or joint axis tuple. Its collectives are ``all_reduce`` and
 ``all_gather``, the two that gloo runs over CUDA tensors of ranks sharing
 one card as well as on the CPU (``tools/gloo_cuda_probe.py``).
+:func:`trace_mesh` gives one rank's view with no process group (a
+:class:`TracedMesh`), on which a sharded step runs over meta tensors for
+the dry-run's program cost. Both share every line of :class:`RankView`
+but the two seams through which a collective reaches the other ranks.
 
 Autograd across ranks follows the reference's ``shard_map`` (with
-``check_vma=False``): :meth:`BoundMesh.psum` sums partial values into a
+``check_vma=False``): :meth:`RankView.psum` sums partial values into a
 replicated one and passes the replicated cotangent through to each
-partial; :meth:`BoundMesh.pbroadcast` marks a replicated value that the
+partial; :meth:`RankView.pbroadcast` marks a replicated value that the
 ranks go on to use differently, and sums their cotangents. A replicated
 value's cotangent is then the true one on every rank.
 """
@@ -82,42 +86,26 @@ def spec_axes(spec, ndim: int) -> List[Tuple[str, ...]]:
     return out
 
 
-class BoundMesh:
-    """A :class:`Mesh` laid over the ranks ``0 .. size-1`` of the default
-    process group (see the module docstring). Every rank of the group
-    makes the same groups in the same order at construction."""
+class RankView:
+    """Rank ``rank``'s view of a :class:`Mesh`: its coordinates, its blocks
+    of sharded tensors and the mesh's collectives, counted in ``traffic``.
+    The collectives reach the other ranks through two seams,
+    :meth:`_all_gather` and :meth:`_all_reduce`, which :class:`BoundMesh`
+    runs over a process group and :class:`TracedMesh` only describes."""
 
-    def __init__(self, mesh: Mesh):
-        import torch.distributed as dist
-
-        if not dist.is_initialized() or dist.get_world_size() != mesh.size:
-            raise ValueError(
-                f"a {mesh.axis_sizes} mesh needs a process group of {mesh.size} ranks; "
-                f"have {dist.get_world_size() if dist.is_initialized() else 0}")
+    def __init__(self, mesh: Mesh, rank: int):
+        if not 0 <= rank < mesh.size:
+            raise ValueError(f"rank {rank} is not on a {mesh.axis_sizes} mesh")
         self.mesh = mesh
         self.axis_names = mesh.axis_names
         self.shape = mesh.shape
         self.devices = mesh.devices
-        self.rank = dist.get_rank()
-        self.coords = self.coords_of(self.rank)
+        self.rank = rank
+        self.coords = self.coords_of(rank)
         # per collective: calls and the bytes of their results on this rank
         # (an all_reduce's operand, an all_gather's gathered block)
         self.traffic = {"all_reduce": {"calls": 0, "bytes": 0},
                         "all_gather": {"calls": 0, "bytes": 0}}
-        self._groups: Dict[Tuple[str, ...], Tuple[object, List[int]]] = {}
-        ids = mesh.devices
-        for n in range(1, len(mesh.axis_names) + 1):
-            for axes in itertools.combinations(mesh.axis_names, n):
-                moved = [mesh.axis_names.index(a) for a in axes]
-                kept = [i for i in range(ids.ndim) if i not in moved]
-                # one group for every coordinate of the axes not in ``axes``
-                blocks = np.transpose(ids, kept + moved).reshape(-1, int(np.prod(
-                    [ids.shape[i] for i in moved])))
-                for members in blocks:
-                    members = sorted(int(r) for r in members)
-                    group = dist.new_group(members)
-                    if self.rank in members:
-                        self._groups[axes] = (group, members)
 
     def coords_of(self, rank: int) -> Dict[str, int]:
         idx = np.unravel_index(rank, self.mesh.axis_sizes)
@@ -135,11 +123,11 @@ class BoundMesh:
             i = i * self.shape[a] + c[a]
         return i
 
-    def group(self, axes: Sequence[str]):
-        """(process group, its ranks in group-rank order) of the ranks that
-        share this rank's coordinates off ``axes``."""
-        key = tuple(a for a in self.axis_names if a in axes)
-        return self._groups[key]
+    def members(self, axes: Sequence[str]) -> List[int]:
+        """The ranks that share this rank's coordinates off ``axes``, in
+        increasing order (the order of a collective's parts)."""
+        idx = tuple(slice(None) if a in axes else self.coords[a] for a in self.axis_names)
+        return sorted(int(r) for r in self.devices[idx].reshape(-1))
 
     # -- blocks of sharded tensors ------------------------------------------
 
@@ -175,8 +163,6 @@ class BoundMesh:
         (default: every axis of ``spec``): the block under ``spec`` with
         ``axes`` removed. On each dim the removed axes must end its tuple
         (the minor ones), so the gathered block is contiguous."""
-        import torch.distributed as dist
-
         dims = spec_axes(spec, x.ndim)
         if axes is None:
             axes = [a for d in dims for a in d]
@@ -189,9 +175,8 @@ class BoundMesh:
             if gone and d[len(d) - len(gone):] != gone:
                 raise ValueError(f"cannot gather {gone} out of the joint axis {d}")
             removed.append(gone)
-        group, members = self.group(axes)
-        parts = [torch.empty_like(x) for _ in members]
-        dist.all_gather(parts, x.contiguous(), group=group)
+        members = self.members(axes)
+        parts = self._all_gather(x.contiguous(), axes)
         counts = tuple(self.axis_size(g) for g in removed)
         grid = np.empty(counts, dtype=object)
         for r, part in zip(members, parts):
@@ -205,13 +190,19 @@ class BoundMesh:
 
     def all_reduce(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
         """A sum over ``axes`` outside autograd (a new tensor)."""
-        import torch.distributed as dist
-
         x = x.clone()
         if axes and self.axis_size(axes) > 1:
-            dist.all_reduce(x, group=self.group(axes)[0])
+            self._all_reduce(x, axes)
             self._count("all_reduce", x)
         return x
+
+    def _all_gather(self, x: torch.Tensor, axes: Sequence[str]) -> List[torch.Tensor]:
+        """The blocks of the ranks of ``members(axes)``, in its order."""
+        raise NotImplementedError
+
+    def _all_reduce(self, x: torch.Tensor, axes: Sequence[str]) -> None:
+        """Sum ``x`` in place over the ranks of ``members(axes)``."""
+        raise NotImplementedError
 
     def _count(self, kind: str, x: torch.Tensor) -> None:
         self.traffic[kind]["calls"] += 1
@@ -230,6 +221,82 @@ class BoundMesh:
         if not axes or self.axis_size(axes) == 1:
             return x
         return _PBroadcast.apply(x, self, tuple(axes))
+
+
+class BoundMesh(RankView):
+    """A :class:`Mesh` laid over the ranks ``0 .. size-1`` of the default
+    process group (see the module docstring). Every rank of the group
+    makes the same groups in the same order at construction."""
+
+    def __init__(self, mesh: Mesh):
+        import torch.distributed as dist
+
+        if not dist.is_initialized() or dist.get_world_size() != mesh.size:
+            raise ValueError(
+                f"a {mesh.axis_sizes} mesh needs a process group of {mesh.size} ranks; "
+                f"have {dist.get_world_size() if dist.is_initialized() else 0}")
+        super().__init__(mesh, dist.get_rank())
+        self._groups: Dict[Tuple[str, ...], Tuple[object, List[int]]] = {}
+        ids = mesh.devices
+        for n in range(1, len(mesh.axis_names) + 1):
+            for axes in itertools.combinations(mesh.axis_names, n):
+                moved = [mesh.axis_names.index(a) for a in axes]
+                kept = [i for i in range(ids.ndim) if i not in moved]
+                # one group for every coordinate of the axes not in ``axes``
+                blocks = np.transpose(ids, kept + moved).reshape(-1, int(np.prod(
+                    [ids.shape[i] for i in moved])))
+                for members in blocks:
+                    members = sorted(int(r) for r in members)
+                    group = dist.new_group(members)
+                    if self.rank in members:
+                        self._groups[axes] = (group, members)
+
+    def group(self, axes: Sequence[str]):
+        """(process group, its ranks in group-rank order) of the ranks that
+        share this rank's coordinates off ``axes``."""
+        key = tuple(a for a in self.axis_names if a in axes)
+        return self._groups[key]
+
+    def _all_gather(self, x, axes):
+        import torch.distributed as dist
+
+        group, members = self.group(axes)
+        parts = [torch.empty_like(x) for _ in members]
+        dist.all_gather(parts, x, group=group)
+        return parts
+
+    def _all_reduce(self, x, axes):
+        import torch.distributed as dist
+
+        dist.all_reduce(x, group=self.group(axes)[0])
+
+
+class TracedMesh(RankView):
+    """Rank ``rank``'s view of ``mesh`` with no process group, for tracing
+    one rank's step (``analysis.program.trace_step``): every line is
+    :class:`RankView`'s, the collectives' counts included, but an
+    all_gather assembles ``torch.empty_like`` parts (meta in, meta out)
+    and an all_reduce leaves its clone as it is. ``on_collective(kind, operand,
+    result, members)``, when set, hears of each collective with its operand,
+    its result and the ranks it spans."""
+
+    def __init__(self, mesh: Mesh, rank: int = 0):
+        super().__init__(mesh, rank)
+        self.on_collective = None
+        self._operand = None
+
+    def _all_gather(self, x, axes):
+        self._operand = x, axes
+        return [torch.empty_like(x) for _ in range(self.axis_size(axes))]
+
+    def _all_reduce(self, x, axes):
+        self._operand = x, axes
+
+    def _count(self, kind: str, x: torch.Tensor) -> None:
+        super()._count(kind, x)
+        if self.on_collective is not None:
+            operand, axes = self._operand
+            self.on_collective(kind, operand, x, self.members(axes))
 
 
 def _assemble(grid: np.ndarray, dim: int = 0) -> torch.Tensor:
@@ -265,3 +332,9 @@ def bind_mesh(mesh: Mesh) -> BoundMesh:
     """``mesh`` over the default process group's ranks (collective: every
     rank calls it, with the same mesh)."""
     return BoundMesh(mesh)
+
+
+def trace_mesh(mesh: Mesh, rank: int = 0) -> TracedMesh:
+    """Rank ``rank``'s view of ``mesh`` with no process group (see
+    :class:`TracedMesh`)."""
+    return TracedMesh(mesh, rank)

@@ -11,7 +11,7 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, InputShape
+from repro_torch.configs.base import INPUT_SHAPES, ArchConfig, InputShape  # noqa: F401
 
 META = torch.device("meta")
 

@@ -21,6 +21,7 @@ batch split into as many parts as the reference's sharded step splits it
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Tuple
 
 import torch
@@ -45,16 +46,16 @@ LR = 3e-4
 WD = 0.1
 
 
-def adam_init_f32(params: Any) -> AdamState:
+def adam_init_f32(params_shape: Any) -> AdamState:
     """Adam moments in float32 whatever the (bf16) param dtype: the
     production mixed-precision layout. After the first update the params
     are float32 too, as in the reference."""
-    device = tree_leaves(params)[0].device
+    device = tree_leaves(params_shape)[0].device
     zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=device)  # noqa: E731
     return AdamState(
         step=torch.zeros((), dtype=torch.int32, device=device),
-        mu=tree_map(zeros, params),
-        nu=tree_map(zeros, params),
+        mu=tree_map(zeros, params_shape),
+        nu=tree_map(zeros, params_shape),
     )
 
 
@@ -207,10 +208,22 @@ class ShardedStep:
 
     # -- pieces ------------------------------------------------------------
 
+    def on(self, view) -> "ShardedStep":
+        """This step on ``view``, a rank's view of the same mesh (a
+        ``launch.mesh.trace_mesh``, to trace the rank's program)."""
+        if dict(view.shape) != dict(self.mesh.shape):
+            raise ValueError(f"a step built for {dict(self.mesh.shape)} cannot run on "
+                             f"{dict(view.shape)}")
+        step = copy.copy(self)
+        step.mesh = view
+        step.active = None if self.active is None else view
+        return step
+
     def _bound(self):
         if not hasattr(self.mesh, "gather"):
             raise ValueError("a sharded step runs on a mesh bound to the process group "
-                             "(launch.mesh.bind_mesh); this one is a description")
+                             "(launch.mesh.bind_mesh) or traced (launch.mesh.trace_mesh); "
+                             "this one is a description")
         return self.mesh
 
     def _views(self, bm, params):
@@ -347,7 +360,9 @@ def build_sharded_step(cfg: ArchConfig, shape: InputShape, mesh, strategy: str =
 
     ``fn`` runs on a mesh bound to the process group (``mesh.bind_mesh``)
     and takes and returns each rank's blocks; on a description it only
-    describes. It computes what the single-device step computes on the
+    describes (``fn.on(mesh.trace_mesh(desc, rank))`` runs one rank's
+    program with no group, as ``analysis.program.trace_step`` does). It
+    computes what the single-device step computes on the
     same global batch, up to rounding, except where the reference's own
     sharded step splits the work: its expert-parallel MoE (megatron and
     zero1) routes, caps and averages its aux loss over each data shard's

@@ -9,8 +9,8 @@ Mamba block (simplified selective SSM, faithful state recurrence):
   h_t = exp(dt * A) h_{t-1} + (dt * B_t) x_t        (state: (d_inner, n))
   y_t = h_t . C_t + D * x_t;  out = out_proj(y * silu(z))
 
-The state recurrence loops over time in Python in float32, as the
-reference's ``lax.scan``.
+The state recurrence loops over time in Python (``layers.time_scan``) in
+float32, as the reference's ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import KVCache, attention_decode, attention_full, init_attention
-from repro_torch.models.layers import Draw, Fill, dense, init_dense, init_rmsnorm, rmsnorm
+from repro_torch.models.layers import (Draw, Fill, dense, init_dense, init_rmsnorm, rmsnorm,
+                                      time_scan)
 
 
 class MambaState(NamedTuple):
@@ -74,12 +75,12 @@ def _ssm_scan(p: Dict, xc: torch.Tensor, h0: torch.Tensor) -> Tuple[torch.Tensor
     decay = torch.exp(dt[..., None] * A[None, None])                   # (B,S,di,n)
     inp = (dt * xc.to(torch.float32))[..., None] * Bm[..., None, :]
 
-    h = h0
-    ys = []
-    for t in range(xc.shape[1]):
-        h = decay[:, t] * h + inp[:, t]
-        ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t]))
-    y = torch.stack(ys, dim=1) + p["D"].to(torch.float32) * xc.to(torch.float32)
+    def ssm_step(h, decay_t, inp_t, c_t):
+        h = decay_t * h + inp_t
+        return h, torch.einsum("bdn,bn->bd", h, c_t)
+
+    h, y = time_scan(ssm_step, h0, (decay, inp, Cm))
+    y = y + p["D"].to(torch.float32) * xc.to(torch.float32)
     return y, h
 
 

@@ -9,6 +9,7 @@ in float32.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
@@ -140,3 +141,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, mode: str = "standar
     if rot_dim == hd:
         return rotated
     return torch.cat([rotated, x[..., rot_dim:]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Loops over time
+# ---------------------------------------------------------------------------
+
+# The tracer of a running program trace (``analysis.program`` sets it around
+# a traced step, through :func:`scan_tracer`); None runs each loop as written.
+_SCAN: Dict[str, Any] = {"tracer": None}
+
+
+@contextlib.contextmanager
+def scan_tracer(tracer):
+    """Within: :func:`time_scan` hands its loops to ``tracer.scan``."""
+    saved, _SCAN["tracer"] = _SCAN["tracer"], tracer
+    try:
+        yield
+    finally:
+        _SCAN["tracer"] = saved
+
+
+def time_scan(step, carry: torch.Tensor, xs: Tuple[torch.Tensor, ...],
+              consts: Tuple[torch.Tensor, ...] = ()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence ``carry, y_t = step(carry, *(x[:, t] for x in xs),
+    *consts)`` over t in ``range(xs[0].shape[1])`` (the reference's
+    ``lax.scan`` over time); returns the last carry and the y_t stacked on
+    dim 1. ``step`` reads no tensor but its arguments. Under a program trace
+    the tracer counts one step for all of them (``analysis.program``)."""
+    if _SCAN["tracer"] is not None:
+        return _SCAN["tracer"].scan(step, carry, xs, consts)
+    ys = []
+    for t in range(xs[0].shape[1]):
+        carry, y = step(carry, *(x[:, t] for x in xs), *consts)
+        ys.append(y)
+    return carry, torch.stack(ys, dim=1)

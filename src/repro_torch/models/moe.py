@@ -152,15 +152,17 @@ def moe_ffn_dense(p: Dict, cfg: ArchConfig, x: torch.Tensor) -> Tuple[torch.Tens
 
 
 def moe_ffn_sharded(p: Dict, cfg: ArchConfig, x: torch.Tensor, mesh) -> Tuple[torch.Tensor, Dict]:
-    """Expert-parallel MoE on a bound mesh: ``x`` is this rank's rows of the
-    batch (split over the data axes, or all of it when the batch did not
-    divide them: ``pspec.split``), ``p["experts"]`` this rank's E/model
+    """Expert-parallel MoE on a rank's view of the mesh (bound to the process
+    group, or traced): ``x`` is this rank's rows of the batch (split over
+    the data axes, or all of it when the batch did not divide them:
+    ``pspec.split``), ``p["experts"]`` this rank's E/model
     experts, the block of the expert axis at its model coordinate. Each rank
     routes its own T with its own capacity; the aux loss is averaged over
     the data axes; ``moe_drop_frac`` is reported as 0, as the reference's."""
     if not hasattr(mesh, "psum"):
-        raise ValueError("moe_ffn_sharded needs a mesh bound to the process group "
-                         "(launch.mesh.bind_mesh)")
+        raise ValueError("moe_ffn_sharded needs a rank's view of the mesh, bound to the "
+                         "process group (launch.mesh.bind_mesh) or traced "
+                         "(launch.mesh.trace_mesh)")
     dp = tuple(a for a in mesh.axis_names if a in ("pod", "data"))
     _, split_axes = pspec.split()
     if set(split_axes) - set(dp):

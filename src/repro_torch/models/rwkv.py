@@ -9,9 +9,9 @@ data-dependent decay (the port of ``repro/models/rwkv.py``).
 * channel-mix block: token shift + squared-ReLU MLP with receptance gate.
 
 Training and prefill run every projection over the whole sequence and
-loop over time in Python for the state recurrence alone, in float32, as
-the reference's ``lax.scan`` does (no kernel: ``wkv_chunked`` is not on
-this path). Decode carries (x_prev_tm, x_prev_cm, S).
+loop over time in Python (``layers.time_scan``) for the state recurrence
+alone, in float32, as the reference's ``lax.scan`` does (no kernel:
+``wkv_chunked`` is not on this path). Decode carries (x_prev_tm, x_prev_cm, S).
 """
 from __future__ import annotations
 
@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import Draw, Fill, dense, init_dense, init_rmsnorm, rmsnorm
+from repro_torch.models.layers import (Draw, Fill, dense, init_dense, init_rmsnorm, rmsnorm,
+                                      time_scan)
 
 DECAY_RANK = 32
 
@@ -166,13 +167,13 @@ def rwkv_layer_seq(
     wh = w.reshape(B, S, H, hd)
     uh = p["u"].reshape(H, hd).to(torch.float32)[None, :, :, None]
 
-    S_st = state.S
-    ys = []
-    for t in range(S):
-        kv = kh[:, t, :, :, None] * vh[:, t, :, None, :]
-        ys.append(torch.einsum("bhk,bhkv->bhv", rh[:, t], S_st + uh * kv))
-        S_st = wh[:, t, :, :, None] * S_st + kv
-    y = torch.stack(ys, dim=1).reshape(B, S, d)                  # (B, S, d)
+    def wkv_step(S_st, k_t, v_t, r_t, w_t, u):
+        kv = k_t[..., :, None] * v_t[..., None, :]
+        y_t = torch.einsum("bhk,bhkv->bhv", r_t, S_st + u * kv)
+        return w_t[..., None] * S_st + kv, y_t
+
+    S_st, y = time_scan(wkv_step, state.S, (kh, vh, rh, wh), (uh,))
+    y = y.reshape(B, S, d)                                       # (B, S, d)
     y = rmsnorm(p["ln_x"], y.to(x.dtype))
     x = x + dense(p["wo"], (y * g).to(x.dtype))
 

@@ -1,8 +1,8 @@
 """The reference API that the port took over last: Theorem 2, the core
 helpers, the dense GAT/GCN forms, the graph's dense view and
 ``build_neighbor_lists``, the metrics registry and telemetry's switches,
-and the package exports, each against ``src/repro/`` on numpy-seeded
-inputs.
+and the package exports (``analysis.hlo`` and ``checkpoint`` among them),
+each against ``src/repro/`` on numpy-seeded inputs.
 
 Tolerances: numpy code (Theorem 2, ``normalized_adjacency``,
 ``build_neighbor_lists``) bit for bit; the dense GAT and GCN at the
@@ -21,6 +21,8 @@ import torch
 
 import jax
 
+import repro.analysis.hlo as jhlo
+import repro.checkpoint as jcheckpoint
 import repro.core as jcore
 import repro.graphs as jgraphs
 import repro.kernels as jkernels
@@ -31,7 +33,8 @@ from repro.core import engine as jengine
 from repro.core import gat as jgat
 from repro.core import gcn as jgcn
 from repro.core import poly_attention as jpoly
-from repro_torch import core, graphs, kernels, telemetry
+from repro_torch import checkpoint, core, graphs, kernels, telemetry
+from repro_torch.analysis import hlo
 from repro_torch.core import chebyshev, gat, gcn, params_from_numpy, poly_attention
 from repro_torch.core import engine as engine_mod
 from repro_torch.telemetry import metrics
@@ -56,6 +59,9 @@ LEFT_OUT = {
     "kernel_available", "resolve_serving_engine",
     # XLA's simulated host devices (``_compat/`` likewise has no counterpart).
     "force_host_device_count",
+    # The TPU v5e's roofline constants: the port's ``roofline_terms`` takes a
+    # chip's constants as arguments, the H100's by default.
+    "PEAK_FLOPS", "HBM_BW", "ICI_BW",
 }
 
 
@@ -412,7 +418,7 @@ def _public(mod):
 
 @pytest.mark.parametrize("ref,port", [
     (jcore, core), (jgraphs, graphs), (jkernels, kernels),
-    (jtelemetry, telemetry), (jmetrics, metrics),
+    (jtelemetry, telemetry), (jmetrics, metrics), (jhlo, hlo), (jcheckpoint, checkpoint),
 ])
 def test_every_public_name_of_the_reference_is_ported(ref, port):
     missing = sorted(n for n in _public(ref) - LEFT_OUT if not hasattr(port, n))
@@ -421,7 +427,7 @@ def test_every_public_name_of_the_reference_is_ported(ref, port):
 
 
 @pytest.mark.parametrize("module", ["serving.server", "launch.multiprocess", "kernels.ops",
-                                    "kernels", "telemetry"])
+                                    "kernels", "telemetry", "analysis.hlo"])
 def test_left_out_names_stay_out(module):
     import importlib
 

@@ -17,8 +17,9 @@ on the CPU in one process (no ranks).
   the reference's for every arch x shape.
 * The dry-run: its records carry the reference's schema
   (``src/repro/launch/dryrun.py``, ``tests/test_launchers.py:63-91``) less
-  the fields that need XLA; the CLI writes 40 ``ok`` records and the
-  report prints their table; specs allocate nothing.
+  ``lower_s`` and ``compile_s``, with the traced program's cost; the CLI
+  writes ``ok`` records, the report prints their table with the collective
+  term, ``--save-hlo`` writes the listing; specs allocate nothing.
 """
 import json
 import os
@@ -272,15 +273,16 @@ def test_roofline_defaults_are_the_h100s():
 # ---------------------------------------------------------------------------
 
 # The reference's record (src/repro/launch/dryrun.py:46-121) and the fields
-# that need XLA's compiled program.
+# an eager step has no counterpart of (it is neither lowered nor compiled).
 REFERENCE_KEYS = {"arch", "shape", "mesh", "chips", "kind", "strategy", "status", "lower_s",
                   "compile_s", "memory_analysis", "cost_analysis", "hlo_bytes", "hlo_cost",
                   "model_traffic_global", "roofline", "model_flops_global",
                   "model_flops_per_chip", "useful_flops_ratio", "active_params",
                   "total_params", "total_s"}
-XLA_ONLY = {"lower_s", "compile_s", "cost_analysis", "hlo_bytes", "hlo_cost",
-            "useful_flops_ratio"}
-ROOFLINE_KEYS = {"compute_s", "memory_s", "bottleneck"}   # less collective_s, memory_s_hlo_upper
+XLA_ONLY = {"lower_s", "compile_s"}
+ROOFLINE_KEYS = {"compute_s", "memory_s", "collective_s", "bottleneck", "memory_s_hlo_upper"}
+HLO_COST_KEYS = {"flops", "traffic_bytes", "collective_bytes", "collective_by_kind",
+                 "flops_unscaled", "transcendentals", "collective_calls_by_kind"}
 
 
 @pytest.mark.parametrize("arch,shape_name", [("yi-6b", "train_4k"),
@@ -295,10 +297,24 @@ def test_dryrun_record_schema(arch, shape_name):
     assert rec["status"] == "ok", rec.get("error")
     assert set(rec) == REFERENCE_KEYS - XLA_ONLY
     assert rec["mesh"] == "2x2" and rec["chips"] == 4 and rec["kind"] == shape.kind
-    assert set(rec["roofline"]) == ROOFLINE_KEYS
-    assert rec["roofline"]["compute_s"] > 0 and rec["roofline"]["memory_s"] > 0
-    assert set(rec["memory_analysis"]) == {"argument_size_in_bytes", "output_size_in_bytes"}
+    rl = rec["roofline"]
+    assert set(rl) == ROOFLINE_KEYS
+    assert rl["compute_s"] > 0 and rl["memory_s"] > 0 and rl["memory_s_hlo_upper"] > 0
+    assert rl["collective_s"] > 0          # every (2, 2) step gathers its params over model
+    assert rl["bottleneck"] == max(("compute", "memory", "collective"),
+                                   key=lambda k: rl[f"{k}_s"])
+    assert set(rec["memory_analysis"]) == {"argument_size_in_bytes", "output_size_in_bytes",
+                                           "temp_size_in_bytes"}
     assert rec["memory_analysis"]["argument_size_in_bytes"] > 0
+    assert rec["memory_analysis"]["temp_size_in_bytes"] > 0
+    cost = rec["hlo_cost"]
+    assert set(cost) == HLO_COST_KEYS and cost["flops"] > 0
+    assert set(cost["collective_by_kind"]) <= {"all-reduce", "all-gather"}
+    assert cost["collective_bytes"] == sum(cost["collective_by_kind"].values())
+    assert set(rec["cost_analysis"]) == {"flops", "bytes_accessed", "transcendentals"}
+    assert rec["cost_analysis"]["flops"] == cost["flops_unscaled"] <= cost["flops"]
+    assert rec["hlo_bytes"] > 0
+    assert rec["useful_flops_ratio"] == rec["model_flops_per_chip"] / cost["flops"]
     assert rec["model_flops_global"] > 0 and rec["model_flops_per_chip"] > 0
     assert rec["active_params"] > 0 and rec["total_params"] > 0
     json.dumps(rec)
@@ -309,7 +325,7 @@ def test_dryrun_per_device_bytes():
     float32 moments and the batch over all 256 devices (a leaf none of
     whose dims divides 256 stays whole); zero1 splits the moments finer
     than megatron."""
-    got = {s: dryrun.run_one("dbrx-132b", "train_4k", False, s)["memory_analysis"][
+    got = {s: dryrun.run_one("dbrx-132b", "train_4k", False, strategy=s)["memory_analysis"][
         "argument_size_in_bytes"] for s in STRATEGIES}
     assert got["fsdp"] < got["zero1"] < got["megatron"]
     ps = param_specs(get_config("dbrx-132b"), INPUT_SHAPES["train_4k"])
@@ -319,20 +335,33 @@ def test_dryrun_per_device_bytes():
 
 
 def test_dryrun_cli_writes_every_record_and_the_report_reads_them(tmp_path):
+    """yi-6b at every shape and granite's train_4k on 16x16 (tracing all 40
+    records takes minutes): ``ok`` records, the report's table with the
+    collective term and the ratio filled, and ``--save-hlo``'s listing."""
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all",
-                          "--shape", "all", "--out", str(tmp_path)], env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr[-3000:]
+    runs = [["--arch", "yi-6b", "--shape", "all"],
+            ["--arch", "granite-moe-1b-a400m", "--shape", "train_4k",
+             "--save-hlo", str(tmp_path / "step.txt")]]
+    for argv in runs:
+        out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out",
+                              str(tmp_path)], env=env, capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
     recs = report.load_records(str(tmp_path))
-    assert len(recs) == 40 and all(r["status"] == "ok" for r in recs)
+    assert len(recs) == 5 and all(r["status"] == "ok" for r in recs)
     table = report.roofline_table(recs)
-    assert len(table.splitlines()) == 42 and "| - |" in table
-    refused = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--save-hlo",
-                              str(tmp_path / "x.hlo")], env=env, capture_output=True, text=True,
-                             timeout=120)
-    assert refused.returncode == 2 and "no HLO" in refused.stderr
+    assert len(table.splitlines()) == 7 and "| - |" not in table
+    # every decode record gathers its params each token: collective-bound
+    decode = [r for r in recs if r["kind"] == "decode"]
+    assert decode and all(r["roofline"]["bottleneck"] == "collective" for r in decode)
+    assert "dominant all-gather" in table
+    listing = (tmp_path / "step.txt").read_text()
+    granite = next(r for r in recs if r["arch"] == "granite-moe-1b-a400m")
+    assert len(listing) == granite["hlo_bytes"]
+    stats = hlo.parse_collectives(listing)
+    assert stats.bytes_by_kind == granite["hlo_cost"]["collective_by_kind"]
+    assert stats.count_by_kind == granite["hlo_cost"]["collective_calls_by_kind"]
 
 
 def test_refusals():
