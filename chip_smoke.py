@@ -166,14 +166,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    record and read just after) for the ten archs at
    ``train_4k`` and ``decode_32k`` and rwkv6-1.6b and hymba-1.5b at
    ``prefill_32k`` on 16x16 megatron, and yi-6b ``train_4k`` on 2x16x16
-   and under 16x16 fsdp, every record ``ok``; each record's flops,
-   traffic, collectives, transcendentals, temp bytes and bottleneck; the
+   and under 16x16 fsdp, every record ``ok``; each record's flops, bytes
+   all-gathered and the param leaves gathered under the tensor-parallel
+   rule (``launch.steps.tp_gathers``), traffic, collectives,
+   transcendentals, temp bytes and bottleneck; the
    roofline table of the 16x16 megatron records with T_collective;
    dbrx-132b ``train_4k``'s per-device argument bytes under megatron, zero1
    and fsdp. The same workers trace 10c's program on each of the four
    ranks, for each of its steps. 10b: a (2, 2) mesh of four ranks
    sharing the card (``launch`` of ``MESH_WORKER``; gloo over the card's
-   tensors): ``granite-moe-1b-a400m`` at full width, float32, 4 layers,
+   tensors; megatron and zero1 tensor parallel over ``model``):
+   ``granite-moe-1b-a400m`` at full width, float32, 4 layers,
    capacity factor E, batch 4 x 128 from the Zipf stream; one train step
    each under megatron, zero1, fsdp and megatron with 2 microbatches, one
    prefill and one decode step (megatron), held against the single-device
@@ -186,8 +189,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    config's capacity factor (1.25; tokens drop, alike). 10c: the full
    config (bf16, 24 layers) on the (2, 2) mesh, megatron, batch 4 x 1024
    (cut only if the four ranks' reckoned bytes exceed ``RANKS_GIB``; the
-   reckoning is printed first): 2 steps, each rank's seconds, peak GiB and
-   bytes by collective per step, equal to the rank's traced program's
+   reckoning from the rank's blocks is printed first): 2 steps, each
+   rank's seconds, peak GiB (``max_memory_allocated``, beside the
+   reckoning) and bytes by collective per step, equal to the rank's traced
+   program's
    (calls and bytes by kind); finite losses, the first within 1.5 of
    log(49408), params float32 after the first step.
 
@@ -2278,34 +2283,39 @@ def print_mesh_checks(label, ranks):
 
 
 def reckon_scale_gib(cfg, batch, seq, mesh) -> dict:
-    """10c's peak bytes on one rank of ``mesh`` (megatron), reckoned from the
-    placements before the run, float32 after step 1: the larger of the
-    backward's end (the param and moment blocks, the gathered leaves beyond
-    the rank's own expert block, every grad the rank computes, and the
-    largest activations: logits, log-softmax and their grad, the remat
-    stash, one layer's MoE capacity buffers) and the update's end (old and
-    new param and moment blocks; the update frees each grad as it goes)."""
+    """10c's peak bytes on one rank of ``mesh`` (megatron, tensor parallel),
+    reckoned from the placements before the run, float32 after step 1: the
+    larger of the backward's end (the param and moment blocks, the leaves
+    gathered under ``launch.steps.tp_gathers``' rule, the grads of the blocks
+    and leaves the rank computes with, and the largest activations: its
+    vocab block of the logits, their exps and their grad, the remat stash,
+    one layer's MoE capacity buffers for the rank's experts) and the
+    update's end (old and new param and moment blocks; the update frees
+    each grad as it goes)."""
     from repro_torch._tree import tree_leaves
     from repro_torch.configs.base import InputShape
     from repro_torch.launch.dryrun import per_device_bytes
-    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.mesh import Mesh, spec_axes
     from repro_torch.launch.steps import ADAM_CHUNK_BYTES, build_sharded_step
 
     m = Mesh(("data", "model"), mesh)
     fn, args, in_sh, out_sh = build_sharded_step(cfg, InputShape("t", seq, batch, "train"), m)
     state = per_device_bytes(fn.out_specs[:2], out_sh[:2])       # float32 params + moments
-    leaves = list(zip(tree_leaves(args[0]), fn.kept))
-    gathered = sum(4 * x.numel() for x, k in leaves if not k)
-    own_experts = sum(4 * x.numel() // mesh[1] for x, k in leaves if k)
+    used = gathered = 0
+    for x, sh, kept in zip(tree_leaves(args[0]), tree_leaves(in_sh[0]), fn.kept):
+        whole = 4 * x.numel()
+        split = int(np.prod([m.shape[a] for d in spec_axes(sh.spec, x.ndim) for a in d]))
+        used += whole // split if kept else whole
+        gathered += 0 if kept else whole
     rows = batch // mesh[0] * seq
     C = int(-(-rows * cfg.experts_per_token // cfg.num_experts) * cfg.moe_capacity_factor)
-    act = (3 * rows * cfg.padded_vocab() * 4 + cfg.num_layers * rows * cfg.d_model * 4
+    act = (3 * rows * cfg.padded_vocab() // mesh[1] * 4 + cfg.num_layers * rows * cfg.d_model * 4
            + 4 * cfg.num_experts // mesh[1] * C * max(cfg.d_model, cfg.d_ff) * 4)
-    backward = state + gathered + (gathered + own_experts) + act
+    backward = state + gathered + used + act
     # the update's temporaries: a few of its slices (launch/steps.py)
     temps = 6 * ADAM_CHUNK_BYTES
-    return {"state": state, "gathered": gathered, "grads": gathered + own_experts,
-            "activations": act, "backward_end": backward, "update_end": 2 * state + temps,
+    return {"state": state, "gathered": gathered, "grads": used, "activations": act,
+            "backward_end": backward, "update_end": 2 * state + temps,
             "total": max(backward, 2 * state + temps)}
 
 
@@ -2441,7 +2451,9 @@ def mesh_phase(smi, dryrun):
     for r in recs:
         c, m = r["hlo_cost"], r["memory_analysis"]
         print(f"10a {r['arch']} {r['shape']} {r['mesh']} {r['strategy']}: flops "
-              f"{c['flops']:.4e} (loop bodies once {c['flops_unscaled']:.4e}), traffic "
+              f"{c['flops']:.4e} (loop bodies once {c['flops_unscaled']:.4e}), gathered "
+              f"{c['collective_by_kind'].get('all-gather', 0):,.0f} B (param leaves "
+              f"{r['gathered_leaves']}), traffic "
               f"{c['traffic_bytes']:.4e} B, collectives {c['collective_by_kind']} calls "
               f"{c['collective_calls_by_kind']}, transcendentals {c['transcendentals']:.4e}, "
               f"temp {m['temp_size_in_bytes'] / 2**30:.2f} GiB, useful flops ratio "
@@ -2471,9 +2483,12 @@ def mesh_phase(smi, dryrun):
                       f"{cfg.num_experts}, batch {MESH_B} x {MESH_S}:", ranks)
     for i in range(SCALE_STEPS):
         part = f"scale step {i}"
+        peaks = [round(r["steps"][part]["peak_gib"], 2) for r in ranks]
         print(f"10c {GRANITE} bf16, 24 layers, (2, 2) megatron, batch {SCALE_B} x {seq}, step {i}"
               f": s per rank {[round(r['steps'][part]['s'], 3) for r in ranks]}, peak GiB per "
-              f"rank {[round(r['steps'][part]['peak_gib'], 2) for r in ranks]}, collectives per "
+              f"rank (max_memory_allocated) {peaks} against {rk['total'] / 2**30:.2f} reckoned "
+              f"(backward's end {rk['backward_end'] / 2**30:.2f}, update's end "
+              f"{rk['update_end'] / 2**30:.2f}), collectives per "
               f"rank {[r['steps'][part]['traffic'] for r in ranks]}; {smi}", flush=True)
         for r in ranks:
             measured = {k: v for k, v in r["steps"][part]["traffic"].items() if v["calls"]}

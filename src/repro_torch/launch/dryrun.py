@@ -23,7 +23,9 @@ traced flops, the analytic traffic and the traced collective bytes under
 the H100's constants (``memory_s_hlo_upper`` from the traced traffic),
 ``useful_flops_ratio``, the model's flops and traffic and the param
 counts. Only ``lower_s`` and ``compile_s`` stay out: an eager step is
-neither lowered nor compiled.
+neither lowered nor compiled. ``gathered_leaves`` lists the param leaves
+the step gathers over the model axis under ``launch.steps.tp_gathers``'
+rule (megatron and zero1 compute with every other leaf's block).
 """
 from __future__ import annotations
 
@@ -83,6 +85,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, save_hlo: str | None = 
     t0 = time.time()
     try:
         fn, args, in_sh, out_sh = build_sharded_step(cfg, shape, mesh, strategy=strategy)
+        rec["gathered_leaves"] = list(fn.gathered)
         cost, listing, temp = trace_step(fn, args, in_sh, mesh)
         rec["memory_analysis"] = {
             "argument_size_in_bytes": per_device_bytes(args, in_sh),
@@ -147,9 +150,10 @@ def main(argv=None) -> None:
             n_fail += 0 if ok else 1
             rl = rec.get("roofline", {})
             arg_gib = rec.get("memory_analysis", {}).get("argument_size_in_bytes", 0) / 2**30
+            flops = rec.get("hlo_cost", {}).get("flops", 0.0)
             print(
                 f"[{'OK' if ok else 'FAIL'}] {arch} {shape} {mesh_tag} "
-                f"trace={rec['total_s']}s args/device={arg_gib:.3f}GiB "
+                f"trace={rec['total_s']}s args/device={arg_gib:.3f}GiB flops/device={flops:.4e} "
                 f"bottleneck={rl.get('bottleneck', '-')}"
                 + ("" if ok else f"  err={rec.get('error')}"),
                 flush=True)

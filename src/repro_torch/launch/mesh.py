@@ -23,8 +23,11 @@ Autograd across ranks follows the reference's ``shard_map`` (with
 ``check_vma=False``): :meth:`RankView.psum` sums partial values into a
 replicated one and passes the replicated cotangent through to each
 partial; :meth:`RankView.pbroadcast` marks a replicated value that the
-ranks go on to use differently, and sums their cotangents. A replicated
-value's cotangent is then the true one on every rank.
+ranks go on to use differently, and sums their cotangents;
+:meth:`RankView.pgather` gathers the ranks' blocks of a value whole for a
+use that differs by rank, and hands each rank the sum of the cotangents of
+its block. A replicated value's cotangent is then the true one on every
+rank.
 """
 from __future__ import annotations
 
@@ -222,6 +225,15 @@ class RankView:
             return x
         return _PBroadcast.apply(x, self, tuple(axes))
 
+    def pgather(self, x: torch.Tensor, dim: int, axes: Sequence[str]) -> torch.Tensor:
+        """``x``, this rank's block along ``dim`` of a value split over
+        ``axes``, gathered whole and about to be used differently on each
+        rank: the backward sums the cotangents over ``axes`` and returns this
+        rank's block of the sum."""
+        if not axes or self.axis_size(axes) == 1:
+            return x
+        return _PGather.apply(x, self, dim % x.ndim, tuple(axes))
+
 
 class BoundMesh(RankView):
     """A :class:`Mesh` laid over the ranks ``0 .. size-1`` of the default
@@ -326,6 +338,24 @@ class _PBroadcast(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.mesh.all_reduce(g, ctx.axes), None, None
+
+
+class _PGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, axes):
+        ctx.mesh, ctx.dim, ctx.axes, ctx.n = mesh, dim, axes, x.shape[dim]
+        return mesh.gather(x, _spec_at(dim, axes), axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.mesh.index(ctx.axes)
+        return (ctx.mesh.all_reduce(g, ctx.axes).narrow(ctx.dim, i * ctx.n, ctx.n), None, None,
+                None)
+
+
+def _spec_at(dim: int, axes: Sequence[str]) -> tuple:
+    """A spec that splits dim ``dim`` over ``axes`` and no other."""
+    return (None,) * dim + (tuple(axes),)
 
 
 def bind_mesh(mesh: Mesh) -> BoundMesh:

@@ -4,13 +4,21 @@
 The reference's ``constrain(x, *axes)`` fits a PartitionSpec to ``x``
 from ``axes`` (:func:`fitted_spec`): only axis names present in the active
 mesh and dims that divide the axis size are kept, everything else is None
-(replicated); off a mesh it is a no-op. A constraint changes where a value
-lives, not what it is, and the port's sharded steps place every value
-themselves, so ``constrain`` returns its input and the port's models do
-not call it (the reference constrains its dense MoE's capacity buffers).
+(replicated); off a mesh it is a no-op. A constraint is a hint to GSPMD,
+which partitions the reference's program. The port's layout is explicit:
+under megatron and zero1 each rank computes with its param blocks, its
+activations replicated over ``model`` between tensor-parallel regions
+(``models/layers.py``: ``pbroadcast`` into a column-split product,
+``psum`` out of a row-split one) and split over the data axes by batch
+rows; the vocab-parallel logits and the cache's head and channel blocks
+are gathered to their placements only at the step's end
+(``launch/steps.py``). So ``constrain`` returns its input and the port's
+models do not call it (the reference constrains its dense MoE's capacity
+buffers).
 
 The active mesh is what ``moe_ffn`` reads to take the expert-parallel
-path. :func:`running` records, while a sharded step runs, the active mesh
+path, and what the layers read to compute with the rank's blocks
+(``layers.tp_view``). :func:`running` records, while a sharded step runs, the active mesh
 and the axes over which the rows of the batch in hand are split
 (:func:`split` reads them); the few reductions over the batch (the cross
 entropy's mean, the dense MoE's capacity, ranks and load statistics) then

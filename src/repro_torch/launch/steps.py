@@ -5,19 +5,30 @@ which lays each of them over a mesh with its placements.
 
 A sharded step runs on the ranks of a bound mesh (``launch.mesh``), one
 process a rank, each holding of every param, moment, batch and cache leaf
-the block its placement gives it. Within a step a rank gathers each param
-leaf over its spec's axes (``all_gather``) and computes its rows of the
-batch with the full weights; under megatron and zero1 the MoE's expert
-leaves are not gathered, since the expert-parallel ``moe_ffn_sharded``
-consumes each rank's block of the expert axis. The few reductions over the
-batch sum over its split (``pspec.split``), so the loss is the global one
-on every rank; the grads are summed over the split (``all_reduce``), clipped
-by the global norm and applied by AdamW to each rank's block of the
-moments (zero1's finer blocks are all-gathered back to the param block).
-Outputs are cut, or all-gathered and cut, to their placements. The step
-computes what the single-device step computes, up to rounding, with the
-batch split into as many parts as the reference's sharded step splits it
-(see ``build_sharded_step``).
+the block its placement gives it, and computes its rows of the batch
+(split over the data axes).
+
+Under megatron and zero1 the step is tensor parallel over the ``model``
+axis, as GSPMD partitions the reference's program: a rank computes with
+its own blocks (``models/layers.py``'s regions: column-split products,
+row-split products summed over ``model``, the vocab-parallel embedding,
+head and cross entropy, the expert-parallel MoE) and its cache blocks (KV
+heads, RWKV's state heads, Mamba's channels), and gathers no param leaf,
+but for the few whose blocks the model cannot compute with
+(:func:`tp_gathers`: a block that cuts inside a head, Mamba's
+``in_proj``). Under fsdp a rank gathers each param leaf over its spec's
+axes and computes whole layers.
+
+The few reductions over the batch sum over its split (``pspec.split``), so
+the loss is the global one on every rank; the grads of each rank's blocks
+are summed over the split (``all_reduce``), clipped by the global norm
+(each block's squares summed over the ranks whose blocks differ) and
+applied by AdamW to each rank's block of the moments (zero1's finer blocks
+are all-gathered back to the param block). Outputs are cut, or gathered
+over the axes their placement does not split, to their placements. The
+step computes what the single-device step computes, up to rounding, with
+the batch split into as many parts as the reference's sharded step splits
+it (see ``build_sharded_step``).
 """
 from __future__ import annotations
 
@@ -40,6 +51,7 @@ from repro_torch.launch.specs import (
     prefill_cache_specs,
 )
 from repro_torch.models import build_model
+from repro_torch.models.rwkv import RWKVState
 from repro_torch.optim.adamw import AdamState, adam_update, clip_by_global_norm
 
 LR = 3e-4
@@ -152,10 +164,42 @@ def _common(spec, ndim: int, split) -> P:
     return P(*out)
 
 
-def _refines(to, frm, ndim: int) -> bool:
-    """Every dim's axes under ``frm`` begin its axes under ``to``: a block
-    under ``to`` lies inside this rank's block under ``frm``."""
-    return all(t[:len(f)] == f for t, f in zip(spec_axes(to, ndim), spec_axes(frm, ndim)))
+def tp_gathers(cfg: ArchConfig, path: str, spec, mesh) -> bool:
+    """The explicit gather rule of a tensor-parallel step: whether a param
+    leaf's block on the ``model`` axis is one the model cannot compute with,
+    so that each rank gathers the leaf whole and uses the part it needs:
+
+    * an attention projection (``wq``, ``wk``, ``wv``: weight or bias) whose
+      heads do not divide the axis while its width does, so its block cuts
+      inside a head: reduced paligemma-3b's single KV head on (1, 2); at
+      model 16 the KV heads of chatglm3-6b (2), yi-6b (4), granite, dbrx,
+      qwen2 and minitron (8), hymba-1.5b's 25 query and 5 KV heads and
+      paligemma-3b's 8 query heads and single KV head;
+    * Mamba's ``in_proj``, whose contiguous column blocks do not hold the
+      matching channels of its x and z halves (at model 2 rank 0 holds all
+      of x, rank 1 all of z).
+    """
+    if mesh.shape.get("model", 1) == 1 or "model" not in {
+            a for d in spec_axes(spec, len(spec)) for a in d}:
+        return False
+    parts = path.split("/")
+    if "in_proj" in parts:
+        return True
+    if len(parts) >= 3 and parts[-3].endswith("attn") and parts[-2] in ("wq", "wk", "wv"):
+        heads = cfg.num_heads if parts[-2] == "wq" else cfg.num_kv_heads
+        return heads % mesh.shape["model"] != 0
+    return False
+
+
+def _computed(spec, ndim: int, axes, block: bool) -> P:
+    """The spec of a cache leaf as a rank reads and writes it: its rows split
+    over ``axes`` (dim 1), and with ``block`` its placement's split over
+    ``model`` (the heads or channels the rank computes)."""
+    out = []
+    for i, d in enumerate(spec_axes(spec, ndim)):
+        out.append((tuple(axes) or None) if i == 1 else
+                   "model" if block and "model" in d else None)
+    return P(*out)
 
 
 ADAM_CHUNK_BYTES = 64 * 2**20    # the largest leading slice updated at once
@@ -194,17 +238,15 @@ class ShardedStep:
         self.model = build_model(cfg)
         self.active = None if strategy == "fsdp" else mesh
         self.batch_spec = shd.batch_spec_fsdp if strategy == "fsdp" else shd.batch_spec
-        E = cfg.num_experts
-        sharded_moe = (self.active is not None and "model" in mesh.axis_names
-                       and E > 0 and E % mesh.shape["model"] == 0)
         p_specs, p_shard = args[0], in_sh[0]
         self._p_full = [tuple(x.shape) for x in tree_leaves(p_specs)]
         self._p_spec = [sh.spec for sh in tree_leaves(p_shard)]
-        # per param leaf: one of the expert leaves moe_ffn_sharded consumes
-        # as this rank's block of the expert axis (never gathered)
-        self.kept = tree_leaves(shd.map_with_path(
-            lambda path, sh: sharded_moe and "experts" in path and len(sh.spec) >= 3
-            and sh.spec[len(sh.spec) - 3] == "model", p_shard))
+        paths = tree_leaves(shd.map_with_path(lambda path, sh: path, p_shard))
+        # the param leaves a tensor-parallel rank gathers (tp_gathers); the
+        # others it computes with as its blocks (``kept``; fsdp keeps none)
+        self.gathered = [path for path, spec in zip(paths, self._p_spec)
+                         if self.active is not None and tp_gathers(cfg, path, spec, mesh)]
+        self.kept = [self.active is not None and path not in self.gathered for path in paths]
 
     # -- pieces ------------------------------------------------------------
 
@@ -227,8 +269,8 @@ class ShardedStep:
         return self.mesh
 
     def _views(self, bm, params):
-        """The param tree a rank computes with: each leaf gathered over its
-        spec's axes, the kept expert leaves as this rank's block."""
+        """The param tree a rank computes with: the kept leaves as this
+        rank's blocks, the others gathered over their spec's axes."""
         leaves = [x if k else bm.gather(x, s)
                   for x, s, k in zip(tree_leaves(params), self._p_spec, self.kept)]
         return tree_unflatten(params, leaves)
@@ -248,19 +290,42 @@ class ShardedStep:
         return out, axes
 
     def _reshard(self, bm, x, frm, to, full_shape):
-        if _refines(to, frm, len(full_shape)):
-            return bm.block(x, frm, to, full_shape)
-        return bm.shard(bm.gather(x, frm), to)
+        """``x``, this rank's block under ``frm``, as its block under ``to``:
+        gathered over the axes ``to`` does not split alike, then cut."""
+        n = len(full_shape)
+        keep, gone = [], []
+        for f, t in zip(spec_axes(frm, n), spec_axes(to, n)):
+            i = 0
+            while i < min(len(f), len(t)) and f[i] == t[i]:
+                i += 1
+            keep.append(f[:i] or None)
+            gone += f[i:]
+        if gone:
+            x, frm = bm.gather(x, frm, gone), P(*keep)
+        return bm.block(x, frm, to, full_shape)
+
+    def _cache_blocks(self):
+        """Per cache leaf: whether this rank computes with its block of the
+        placement's ``model`` split (a tensor-parallel step's heads and
+        channels) or with the whole (fsdp; RWKV's token-shift inputs, which
+        feed the replicated mixes)."""
+        blocks = map_tree(lambda sh: self.active is not None, self.out_sh[1])
+        if isinstance(getattr(blocks, "ssm", None), RWKVState):
+            blocks = blocks._replace(ssm=blocks.ssm._replace(x_prev_tm=False, x_prev_cm=False))
+        return blocks
 
     def _outputs(self, bm, logits, cache, axes):
-        """Logits and cache, computed on this rank's rows (batch dim 0 and 1),
-        cut or gathered to their placements."""
-        logits = self._reshard(bm, logits, P(axes), self.out_sh[0].spec,
-                               tuple(self.out_specs[0].shape))
+        """Logits and cache, computed on this rank's rows (batch dim 0 and 1)
+        and blocks (the vocab; the cache's heads and channels), cut or
+        gathered to their placements."""
+        full = tuple(self.out_specs[0].shape)
+        vocab = "model" if logits.shape[-1] < full[-1] else None
+        logits = self._reshard(bm, logits, P(tuple(axes) or None, None, vocab),
+                               self.out_sh[0].spec, full)
         cache = map_tree(
-            lambda x, sh, spec: self._reshard(bm, x, P(None, axes) if x.ndim >= 2 else P(),
-                                              sh.spec, tuple(spec.shape)),
-            cache, self.out_sh[1], self.out_specs[1])
+            lambda x, sh, spec, block: self._reshard(
+                bm, x, _computed(sh.spec, x.ndim, axes, block), sh.spec, tuple(spec.shape)),
+            cache, self.out_sh[1], self.out_specs[1], self._cache_blocks())
         return logits, cache
 
     # -- the three steps ---------------------------------------------------
@@ -335,12 +400,13 @@ class ShardedStep:
         views = self._views(bm, params)
         axes = spec_axes(self.in_sh[2].spec, 2)[0]
 
-        def view(x, sh):        # every axis but the batch split's (dim 1)
-            dims = spec_axes(sh.spec, x.ndim)
-            rest = [a for i, d in enumerate(dims) if i != 1 for a in d]
+        def view(x, sh, block):   # gathered to the spec the model computes with
+            keep = spec_axes(_computed(sh.spec, x.ndim, axes, block), x.ndim)
+            rest = [a for d, k in zip(spec_axes(sh.spec, x.ndim), keep) for a in d
+                    if a not in k]
             return bm.gather(x, sh.spec, rest) if rest else x
 
-        cache = map_tree(view, cache, self.in_sh[1])
+        cache = map_tree(view, cache, self.in_sh[1], self._cache_blocks())
         with pspec.running(self.active, bm, axes):
             logits, cache = self.model.decode_step(views, cache, token)
         return self._outputs(bm, logits, cache, axes)
@@ -351,12 +417,14 @@ def build_sharded_step(cfg: ArchConfig, shape: InputShape, mesh, strategy: str =
     """Returns ``(fn, arg_specs, in_shardings, out_shardings)``, as the
     reference's (arg specs are meta tensors).
 
-    strategy: "megatron" (batch on data axes, tensor/expert on model),
-    "zero1" (megatron + optimizer state sharded over data — ZeRO-1), or
-    "fsdp" (params sharded over all axes, batch over all axes; the active
-    mesh is cleared, so its MoE takes the dense path). ``microbatches > 1``
-    adds gradient accumulation over slices of the global batch, each split
-    over the mesh like the batch.
+    strategy: "megatron" (batch on data axes, tensor/expert/vocab parallel on
+    model: each rank computes with its own param blocks, gathering only the
+    leaves ``tp_gathers`` names, listed in ``fn.gathered``), "zero1"
+    (megatron + optimizer state sharded over data — ZeRO-1), or "fsdp"
+    (params sharded over all axes and gathered whole in the step, batch over
+    all axes; the active mesh is cleared, so its MoE takes the dense path).
+    ``microbatches > 1`` adds gradient accumulation over slices of the
+    global batch, each split over the mesh like the batch.
 
     ``fn`` runs on a mesh bound to the process group (``mesh.bind_mesh``)
     and takes and returns each rank's blocks; on a description it only

@@ -9,6 +9,11 @@ embeddings (B, S_enc, d_model). The transformer backbone:
 
 Decode uses a self-attention KV cache plus per-layer static cross K/V
 computed once from the encoder memory.
+
+Tensor parallel (``layers.Region``): the encoder layers, the decoder's
+self- and cross-attention and the MLPs compute with the rank's blocks as in
+``models.transformer``; the cross K/V of the KV heads the rank reads (or,
+for a cache, of ``wk``'s block), the memory entering each layer's region.
 """
 from __future__ import annotations
 
@@ -22,11 +27,11 @@ from repro_torch.models.attention import (
     KVCache,
     attention_decode,
     attention_full,
+    cross_kv,
     init_attention,
     init_kv_cache,
 )
 from repro_torch.models.layers import (
-    dense,
     embed,
     init_embedding,
     init_rmsnorm,
@@ -103,20 +108,12 @@ def encode(params: Dict, cfg: ArchConfig, frames: torch.Tensor, *, coeffs=None,
         out, _ = attention_full(lp["attn"], cfg, h, positions, causal=False, coeffs=coeffs)
         x = x + out
         h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        return x + swiglu(lp["mlp"], h2)
+        return x + swiglu(lp["mlp"], h2, cfg.d_ff)
 
     x = frames.to(_dtype(cfg))
     for lp in unstack(params["enc_layers"], cfg.encoder_layers):
         x = _run(body, x, lp, remat)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
-
-
-def _cross_kv(lp: Dict, cfg: ArchConfig, memory: torch.Tensor):
-    B, Sm, _ = memory.shape
-    hd = cfg.resolved_head_dim
-    mk = dense(lp["cross_attn"]["wk"], memory).reshape(B, Sm, cfg.num_kv_heads, hd)
-    mv = dense(lp["cross_attn"]["wv"], memory).reshape(B, Sm, cfg.num_kv_heads, hd)
-    return mk, mv
 
 
 def decode_train(
@@ -127,26 +124,26 @@ def decode_train(
     B, S = tokens.shape
     positions = _positions(B, S, tokens.device)
     mem_pos = _positions(B, memory.shape[1], tokens.device)
-    x = embed(params["embed"], tokens)
+    x = embed(params["embed"], tokens, cfg.padded_vocab())
 
     def body(x, lp):
         h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
         out, _ = attention_full(lp["self_attn"], cfg, h, positions, coeffs=coeffs)
         x = x + out
         h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        mk, mv = _cross_kv(lp, cfg, memory)
+        mk, mv = cross_kv(lp["cross_attn"], cfg, memory)
         out, _ = attention_full(
             lp["cross_attn"], cfg, h2, positions, causal=False,
             coeffs=coeffs, kv_override=(mk, mv, mem_pos),
         )
         x = x + out
         h3 = rmsnorm(lp["ln3"], x, cfg.norm_eps)
-        return x + swiglu(lp["mlp"], h3)
+        return x + swiglu(lp["mlp"], h3, cfg.d_ff)
 
     for lp in unstack(params["dec_layers"], cfg.num_layers):
         x = _run(body, x, lp, remat)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["head"], x).to(torch.float32)
+    return unembed(params["head"], x, cfg.padded_vocab()).to(torch.float32)
 
 
 def encdec_loss(
@@ -155,7 +152,7 @@ def encdec_loss(
 ) -> Tuple[torch.Tensor, Dict]:
     memory = encode(params, cfg, frames, coeffs=coeffs, remat=remat)
     logits = decode_train(params, cfg, tokens, memory, coeffs=coeffs, remat=remat)
-    ce = next_token_ce(logits, labels)
+    ce = next_token_ce(logits, labels, cfg.padded_vocab())
     return ce, {"ce": ce}
 
 
@@ -170,11 +167,13 @@ class EncDecCache(NamedTuple):
 
 
 def init_encdec_cache(cfg: ArchConfig, batch: int, cache_len: int, enc_len: int,
-                      device: torch.device) -> EncDecCache:
+                      device: torch.device, kv_heads: int = None) -> EncDecCache:
+    """An empty cache of ``kv_heads`` KV heads (default: all of them)."""
     dt = _dtype(cfg)
     L = cfg.num_layers
     W = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
-    shape = (batch, enc_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    kv_heads = kv_heads or cfg.num_kv_heads
+    shape = (batch, enc_len, kv_heads, cfg.resolved_head_dim)
 
     def cross():
         return KVCache(
@@ -184,19 +183,20 @@ def init_encdec_cache(cfg: ArchConfig, batch: int, cache_len: int, enc_len: int,
         )
 
     return EncDecCache(
-        self_kv=_stacked(lambda: init_kv_cache(cfg, batch, W, dt, device), L),
+        self_kv=_stacked(lambda: init_kv_cache(cfg, batch, W, dt, device, kv_heads), L),
         cross_kv=_stacked(cross, L),
         pos=torch.zeros((), dtype=torch.int32, device=device),
     )
 
 
 def build_cross_cache(params: Dict, cfg: ArchConfig, memory: torch.Tensor) -> KVCache:
-    """Precompute per-decoder-layer cross K/V from encoder memory."""
+    """Precompute per-decoder-layer cross K/V from encoder memory (of the KV
+    heads of ``wk``'s block)."""
     B, Sm, _ = memory.shape
     pos = _positions(B, Sm, memory.device).contiguous()
     per_layer = []
     for lp in unstack(params["dec_layers"], cfg.num_layers):
-        mk, mv = _cross_kv(lp, cfg, memory)
+        mk, mv = cross_kv(lp["cross_attn"], cfg, memory, for_cache=True)
         per_layer.append(KVCache(k=mk, v=mv, pos=pos))
     return stack(per_layer)
 
@@ -204,7 +204,7 @@ def build_cross_cache(params: Dict, cfg: ArchConfig, memory: torch.Tensor) -> KV
 def encdec_decode_step(
     params: Dict, cfg: ArchConfig, cache: EncDecCache, token: torch.Tensor, *, coeffs=None,
 ) -> Tuple[torch.Tensor, EncDecCache]:
-    x = embed(params["embed"], token)
+    x = embed(params["embed"], token, cfg.padded_vocab())
     pos = cache.pos
     L = cfg.num_layers
     new_self = []
@@ -220,7 +220,7 @@ def encdec_decode_step(
         )
         x = x + out
         h3 = rmsnorm(lp["ln3"], x, cfg.norm_eps)
-        x = x + swiglu(lp["mlp"], h3)
+        x = x + swiglu(lp["mlp"], h3, cfg.d_ff)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(params["head"], x).to(torch.float32)
+    logits = unembed(params["head"], x, cfg.padded_vocab()).to(torch.float32)
     return logits, EncDecCache(self_kv=stack(new_self), cross_kv=cache.cross_kv, pos=pos + 1)

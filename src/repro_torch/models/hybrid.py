@@ -11,6 +11,16 @@ Mamba block (simplified selective SSM, faithful state recurrence):
 
 The state recurrence loops over time in Python (``layers.time_scan``) in
 float32, as the reference's ``lax.scan``.
+
+Tensor parallel (``layers.Region``): Mamba runs on the rank's block of the
+d_inner channels (``conv_w``/``conv_b``, ``dt_bias``, ``D``, ``A_log``, the
+state, and ``w_dt``'s output columns, whose input is the channels
+all-gathered), ``w_B``/``w_C`` contract over d_inner and are summed over the
+model axis before the scan, and ``out_proj`` is row-split. ``in_proj``'s
+contiguous column blocks do not hold the matching channels of its x and z
+halves, so the step gathers it (``launch.steps.tp_gathers``) and each rank
+takes its channels of both. The attention heads follow
+``models.attention``.
 """
 from __future__ import annotations
 
@@ -22,8 +32,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import KVCache, attention_decode, attention_full, init_attention
-from repro_torch.models.layers import (Draw, Fill, dense, init_dense, init_rmsnorm, rmsnorm,
-                                      time_scan)
+from repro_torch.models.layers import (Draw, Fill, Region, dense, dense_col, dense_row,
+                                      init_dense, init_rmsnorm, rmsnorm, time_scan)
 
 
 class MambaState(NamedTuple):
@@ -52,8 +62,9 @@ def init_mamba(cfg: ArchConfig) -> Dict:
 
 
 def init_mamba_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
-                     device: torch.device) -> MambaState:
-    di, n = d_inner_of(cfg), cfg.ssm_state or 16
+                     device: torch.device, d_inner: int = None) -> MambaState:
+    """An empty state of ``d_inner`` channels (default: all of them)."""
+    di, n = d_inner or d_inner_of(cfg), cfg.ssm_state or 16
     return MambaState(
         conv=torch.zeros((batch, cfg.ssm_conv - 1, di), dtype=dtype, device=device),
         h=torch.zeros((batch, di, n), dtype=torch.float32, device=device),
@@ -66,12 +77,18 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _ssm_scan(p: Dict, xc: torch.Tensor, h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Selective scan. xc: (B, S, di) post-conv/silu. Returns (y, h_final)."""
-    A = -torch.exp(p["A_log"].to(torch.float32))                       # (di, n)
-    dt = _softplus(dense(p["w_dt"], xc).to(torch.float32) + p["dt_bias"].to(torch.float32))
-    Bm = dense(p["w_B"], xc).to(torch.float32)                         # (B, S, n)
-    Cm = dense(p["w_C"], xc).to(torch.float32)                         # (B, S, n)
+def _ssm_scan(p: Dict, xc: torch.Tensor, h0: torch.Tensor,
+              r: Region) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan. xc: (B, S, di) post-conv/silu, the region's channels.
+    Returns (y, h_final)."""
+    def contract(w):       # (B, S, n): a product over every channel
+        return r.enter(r.leave(xc @ r.take(w["w"], dim=0))).to(torch.float32)
+
+    A = -torch.exp(r.take(p["A_log"], dim=0).to(torch.float32))       # (di, n)
+    dt = _softplus(dense_col(p["w_dt"], r.gather(xc), r).to(torch.float32)
+                   + r.take(p["dt_bias"]).to(torch.float32))
+    Bm = contract(p["w_B"])                                            # (B, S, n)
+    Cm = contract(p["w_C"])                                            # (B, S, n)
     decay = torch.exp(dt[..., None] * A[None, None])                   # (B,S,di,n)
     inp = (dt * xc.to(torch.float32))[..., None] * Bm[..., None, :]
 
@@ -80,7 +97,7 @@ def _ssm_scan(p: Dict, xc: torch.Tensor, h0: torch.Tensor) -> Tuple[torch.Tensor
         return h, torch.einsum("bdn,bn->bd", h, c_t)
 
     h, y = time_scan(ssm_step, h0, (decay, inp, Cm))
-    y = y + p["D"].to(torch.float32) * xc.to(torch.float32)
+    y = y + r.take(p["D"]).to(torch.float32) * xc.to(torch.float32)
     return y, h
 
 
@@ -88,17 +105,23 @@ def mamba_seq(p: Dict, cfg: ArchConfig, x: torch.Tensor,
               state: MambaState) -> Tuple[torch.Tensor, MambaState]:
     """x: (B, S, d) -> (out, new_state)."""
     di = d_inner_of(cfg)
-    xz = dense(p["in_proj"], x)
-    xs, z = xz[..., :di], xz[..., di:]
+    r = Region(p["out_proj"]["w"].shape[0], di)
+    if r.tp is None:
+        xz = dense(p["in_proj"], x)
+        xs, z = xz[..., :di], xz[..., di:]
+    else:            # this rank's channels of the x half and of the z half
+        xb, w = r.enter(x), r.whole(p["in_proj"]["w"], 2 * di)
+        xs, z = xb @ w[:, r.lo:r.hi], xb @ w[:, di + r.lo:di + r.hi]
     # causal depthwise conv with carried history
     hist = torch.cat([state.conv.to(xs.dtype), xs], dim=1)
     K = cfg.ssm_conv
+    conv_w = r.take(p["conv_w"])
     conv = sum(
-        hist[:, i : i + xs.shape[1], :] * p["conv_w"][i][None, None, :] for i in range(K)
-    ) + p["conv_b"]
+        hist[:, i : i + xs.shape[1], :] * conv_w[i][None, None, :] for i in range(K)
+    ) + r.take(p["conv_b"])
     xc = F.silu(conv)
-    y, h = _ssm_scan(p, xc, state.h)
-    out = dense(p["out_proj"], (y.to(x.dtype) * F.silu(z)))
+    y, h = _ssm_scan(p, xc, state.h, r)
+    out = dense_row(p["out_proj"], (y.to(x.dtype) * F.silu(z)), r)
     new_state = MambaState(conv=hist[:, -(K - 1):, :].to(state.conv.dtype), h=h)
     return out, new_state
 
@@ -129,9 +152,13 @@ def hymba_block_seq(
     positions: torch.Tensor,
     state: MambaState,
     coeffs,
+    for_cache: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, MambaState]:
-    """Parallel attn + SSM over the sequence. Returns (out, k, v, state)."""
-    attn_out, (k, v) = attention_full(p["attn"], cfg, x, positions, coeffs=coeffs)
+    """Parallel attn + SSM over the sequence. Returns (out, k, v, state)
+    (k, v of the KV heads a cache holds with ``for_cache``: see
+    ``attention_full``)."""
+    attn_out, (k, v) = attention_full(p["attn"], cfg, x, positions, coeffs=coeffs,
+                                      for_cache=for_cache)
     ssm_out, state = mamba_seq(p["mamba"], cfg, x, state)
     out = 0.5 * (
         rmsnorm(p["norm_attn"], attn_out, cfg.norm_eps)

@@ -79,17 +79,19 @@ def _ranks(sel: torch.Tensor, E: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _experts(experts: Dict, xt: torch.Tensor, gates: torch.Tensor, slot: torch.Tensor,
-             n_exp: int, C: int) -> torch.Tensor:
+             n_exp: int, C: int, d_ff: int) -> torch.Tensor:
     """Scatter the (token, slot) pairs into the (n_exp*C + 1, d) capacity
-    buffer at ``slot``, run the batched expert SwiGLU and combine the gate-
-    weighted outputs per token (the overflow row is zero)."""
+    buffer at ``slot``, run the batched expert SwiGLU (on this rank's block
+    of the ``d_ff`` columns when the expert leaves are split there) and
+    combine the gate-weighted outputs per token (the overflow row is
+    zero)."""
     T, d = xt.shape
     k = gates.shape[1]
     src = torch.repeat_interleave(xt, k, dim=0)                     # (T*k, d)
     buf = torch.zeros((n_exp * C + 1, d), dtype=xt.dtype, device=xt.device).index_add(
         0, slot, src)
     # batched expert SwiGLU: each weight carries the leading expert axis
-    expert_out = swiglu(experts, buf[: n_exp * C].reshape(n_exp, C, d))
+    expert_out = swiglu(experts, buf[: n_exp * C].reshape(n_exp, C, d), d_ff)
     flat_out = torch.cat(
         [expert_out.reshape(n_exp * C, d), torch.zeros((1, d), dtype=xt.dtype, device=xt.device)],
         dim=0)
@@ -119,7 +121,7 @@ def moe_ffn_dense(p: Dict, cfg: ArchConfig, x: torch.Tensor) -> Tuple[torch.Tens
         rank = rank + counts[: bm.index(axes)].sum(0)[expert]
     keep = rank < C
     slot = torch.where(keep, expert * C + rank, E * C)              # overflow bin
-    out = _experts(p["experts"], xt, gates, slot, E, C)
+    out = _experts(p["experts"], xt, gates, slot, E, C, cfg.d_ff)
 
     # Switch load-balance aux loss + router stats
     onehot0 = F.one_hot(sel[:, 0], E).to(torch.float32)
@@ -187,7 +189,7 @@ def moe_ffn_sharded(p: Dict, cfg: ArchConfig, x: torch.Tensor, mesh) -> Tuple[to
     mine = (local_e >= 0) & (local_e < E_loc) & (rank < C)
     slot = torch.where(mine, local_e * C + rank, E_loc * C)
     partial = _experts(p["experts"], mesh.pbroadcast(xt, ("model",)),
-                       mesh.pbroadcast(gates, ("model",)), slot, E_loc, C)
+                       mesh.pbroadcast(gates, ("model",)), slot, E_loc, C, cfg.d_ff)
     out = mesh.psum(partial, ("model",))                            # combine experts
 
     frac = torch.mean(F.one_hot(sel[:, 0], E).to(torch.float32), dim=0)

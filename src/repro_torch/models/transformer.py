@@ -18,6 +18,11 @@ The same stacked-parameter layout serves three entry points:
   lm_loss        — next-token CE (+ MoE aux) for the train step
   lm_prefill     — forward returning per-layer decode caches
   lm_decode_step — single-token step returning new caches
+
+In a tensor-parallel step (``layers.Region``) the embedding and the head
+are vocab-parallel: a rank's logits are its block of the vocab columns,
+and ``next_token_ce`` reduces the max, the sum of exps and the target
+logit over the model axis. Each layer computes with the rank's blocks.
 """
 from __future__ import annotations
 
@@ -42,6 +47,8 @@ from repro_torch.models.attention import (
     init_kv_cache,
 )
 from repro_torch.models.layers import (
+    MODEL,
+    Region,
     embed,
     init_embedding,
     init_rmsnorm,
@@ -151,20 +158,24 @@ def _layer_seq(
     B = x.shape[0]
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
-        st0 = rwkv_mod.init_rwkv_state(cfg, B, x.dtype, x.device)
+        st0 = rwkv_mod.init_rwkv_state(cfg, B, x.dtype, x.device,
+                                       heads=lp["u"].shape[-1] // rwkv_mod._head_dim(cfg))
         x, st = rwkv_mod.rwkv_layer_seq(lp, cfg, x, st0, cfg.norm_eps)
         return x, (st if collect_cache else None), zero
     if cfg.family == "hybrid":
-        st0 = hyb.init_mamba_state(cfg, B, x.dtype, x.device)
+        st0 = hyb.init_mamba_state(cfg, B, x.dtype, x.device,
+                                   d_inner=lp["hymba"]["mamba"]["D"].shape[-1])
         h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        out, k, v, st = hyb.hymba_block_seq(lp["hymba"], cfg, h, positions, st0, coeffs)
+        out, k, v, st = hyb.hymba_block_seq(lp["hymba"], cfg, h, positions, st0, coeffs,
+                                            for_cache=collect_cache)
         x = x + out
         h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + swiglu(lp["mlp"], h2)
+        x = x + swiglu(lp["mlp"], h2, cfg.d_ff)
         return x, ((k, v, st) if collect_cache else None), zero
     # dense / vlm / moe
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    out, (k, v) = attention_full(lp["attn"], cfg, h, positions, coeffs=coeffs)
+    out, (k, v) = attention_full(lp["attn"], cfg, h, positions, coeffs=coeffs,
+                                 for_cache=collect_cache)
     x = x + out
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
     if cfg.family == "moe":
@@ -172,7 +183,7 @@ def _layer_seq(
         x = x + ffn_out
         extra = aux["moe_aux_loss"]
     else:
-        x = x + swiglu(lp["mlp"], h2)
+        x = x + swiglu(lp["mlp"], h2, cfg.d_ff)
         extra = zero
     return x, ((k, v) if collect_cache else None), extra
 
@@ -206,7 +217,7 @@ def lm_backbone(
 def lm_logits(params: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["head"]
-    return unembed(table, x).to(torch.float32)
+    return unembed(table, x, cfg.padded_vocab()).to(torch.float32)
 
 
 def lm_forward(
@@ -220,7 +231,7 @@ def lm_forward(
     remat: bool = False,
 ):
     """tokens (B, S); prefix (B, P, d) patch/frame embeddings for vlm."""
-    x = embed(params["embed"], tokens)
+    x = embed(params["embed"], tokens, cfg.padded_vocab())
     if prefix is not None:
         x = torch.cat([prefix.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
@@ -232,12 +243,29 @@ def lm_forward(
     return lm_logits(params, cfg, x), caches, aux
 
 
-def next_token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def next_token_ce(logits: torch.Tensor, labels: torch.Tensor, vocab: int = None) -> torch.Tensor:
     """Mean cross entropy over positions with ``labels >= 0``, over the
-    whole batch when a sharded step splits its rows over ranks."""
+    whole batch when a sharded step splits its rows over ranks. Where
+    ``logits`` are this rank's block of the ``vocab`` columns, the log
+    softmax is reduced over the model axis: the maxima all-gathered (they
+    only shift the exponent, so they carry no gradient), the sums of exps
+    and the target logit (from the rank that holds it) summed."""
     mask = (labels >= 0).to(torch.float32)
-    logp = F.log_softmax(logits, dim=-1)
-    tgt = torch.take_along_dim(logp, torch.clamp(labels, min=0).long()[..., None], dim=-1)[..., 0]
+    labels = torch.clamp(labels, min=0).long()[..., None]
+    if vocab is None or logits.shape[-1] == vocab:
+        logp = F.log_softmax(logits, dim=-1)
+        tgt = torch.take_along_dim(logp, labels, dim=-1)[..., 0]
+    else:
+        n = logits.shape[-1]
+        r = Region(n, vocab)
+        peaks = r.tp.gather(torch.amax(logits, dim=-1, keepdim=True).detach(),
+                            (None,) * (logits.ndim - 1) + (MODEL,), MODEL)
+        peak = torch.amax(peaks, dim=-1, keepdim=True)
+        sumexp = r.leave(torch.sum(torch.exp(logits - peak), dim=-1))
+        local = labels - r.lo
+        mine = (local >= 0) & (local < n)
+        own = torch.take_along_dim(logits, torch.clamp(local, 0, n - 1), dim=-1)
+        tgt = r.leave(torch.where(mine, own, 0.0)[..., 0]) - peak[..., 0] - torch.log(sumexp)
     num, den = torch.sum(tgt * mask), torch.sum(mask)
     bm, axes = pspec.split()
     if bm is not None and axes:
@@ -262,7 +290,7 @@ def lm_loss(
     )
     if prefix is not None:
         logits = logits[:, prefix.shape[1]:, :]
-    ce = next_token_ce(logits, labels)
+    ce = next_token_ce(logits, labels, cfg.padded_vocab())
     total = ce + MOE_AUX_COEF * aux
     return total, {"ce": ce, "moe_aux": aux}
 
@@ -366,7 +394,7 @@ def lm_decode_step(
     coeffs=None,
 ) -> Tuple[torch.Tensor, DecodeCache]:
     """token: (B, 1) -> (logits (B, 1, V), new cache)."""
-    x = embed(params["embed"], token)
+    x = embed(params["embed"], token, cfg.padded_vocab())
     pos = cache.pos
     L = cfg.num_layers
     layers = unstack(params["layers"], L)
@@ -392,7 +420,7 @@ def lm_decode_step(
             ffn_out, _ = moe_ffn(lp["moe"], cfg, h2)
             x = x + ffn_out
         else:
-            x = x + swiglu(lp["mlp"], h2)
+            x = x + swiglu(lp["mlp"], h2, cfg.d_ff)
     new_cache = DecodeCache(
         kv=stack(new_kv) if new_kv else None,
         ssm=stack(new_ssm) if new_ssm else None,

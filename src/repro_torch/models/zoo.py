@@ -45,7 +45,8 @@ def build_model(cfg: ArchConfig) -> Model:
             cross = ed.build_cross_cache(params, cfg, memory)
             B = batch["tokens"].shape[0]
             cache = ed.init_encdec_cache(
-                cfg, B, batch["cache_len"], memory.shape[1], memory.device
+                cfg, B, batch["cache_len"], memory.shape[1], memory.device,
+                kv_heads=cross.k.shape[-2],
             )._replace(cross_kv=cross)
             # the decoder prompt is a single BOS handled by decode_step
             return ed.encdec_decode_step(

@@ -4,30 +4,47 @@ rank's sharded step traced over meta tensors, against the reference's
 call moves on gloo CPU ranks.
 
 * Flops: ``tests/test_dryrun.py``'s reduced configs and shapes (train_4k cut
-  to seq 64 x batch 4, decode_32k to seq 128 x batch 4) on (1, 1) and
-  (2, 1) meshes. The reference compiles each step in one subprocess with
-  forced host devices (not granite's train step, which does not compile
-  there: ROADMAP Queue 3); the traced per-device flops must equal its
-  ``analyze_hlo`` flops within 1%. Two archs differ, each by a dot that one
-  side counts and the other does not:
+  to seq 64 x batch 4, decode_32k to seq 128 x batch 4) on (1, 1), (2, 1),
+  (1, 2) and (2, 2) meshes: on a model axis of 2 each rank computes with
+  its blocks, as GSPMD partitions the reference's products. The reference
+  compiles each step in one subprocess with 4 forced host devices (not
+  granite's train step, which does not compile there: ROADMAP Queue 3);
+  the traced per-device flops must equal its ``analyze_hlo`` flops within
+  1%. Three archs differ, each by a dot that one side counts and the other
+  does not:
 
-  - rwkv6-1.6b train, -0.55%: the reference forms k_t v_t^T as
-    ``einsum("bhk,bhv->bhkv")``, a dot with no contraction that
-    ``hlo_graph`` counts (2·B·H·hd² a step); the port multiplies by
-    broadcasting, which the dot rule does not count.
+  - rwkv6-1.6b train, -0.55% (-0.50% on a model axis of 2): the reference
+    forms k_t v_t^T as ``einsum("bhk,bhv->bhkv")``, a dot with no
+    contraction that ``hlo_graph`` counts (2·B·H·hd² a step); the port
+    multiplies by broadcasting, which the dot rule does not count.
   - hymba-1.5b train, +0.08%: the vjp of the selective scan's
     ``einsum("bdn,bn->bd")`` with respect to h is an outer product, which
     torch runs as a bmm with a contraction of 1 (2·B·d_inner·n a step) and
     XLA rewrites as a multiply.
+  - granite-moe-1b-a400m decode on a model axis of 2, -0.26% (524,288
+    flops): the reference's program all-gathers the head (256 x 512
+    float32, its only all-gather) and computes every vocab column on each
+    rank; the port computes its block of the vocab and gathers the logits.
 
-  yi-6b's (2, 1) train all-reduce bytes equal the reference's exactly.
+  No leaf is gathered under ``launch.steps.tp_gathers``' rule in these
+  cases (their heads divide the axis). A reduced yi-6b train step on (2, 2)
+  traces 6.5431e8 flops per device, the reference's. yi-6b's (2, 1) train
+  all-reduce bytes equal the reference's exactly.
+* No param gathers: the traced megatron train and decode steps and the
+  zero1 train step of seven reduced archs on (1, 2) and (2, 2) all-gather no
+  param leaf over the model axis but the ones ``tp_gathers`` lists
+  (paligemma-3b's single KV head: ``wk``, ``wv``; hymba-1.5b's Mamba
+  ``in_proj``); at model 16 the rule lists the leaves whose blocks cut
+  inside a head. In the gangs below, no real megatron or zero1 call gathers
+  a param leaf over model.
 * Collectives: on (2, 1), (1, 2) and (2, 2) gangs of gloo CPU ranks
   (started once each through ``launch.multiprocess.launch``, as in
   ``tests/test_torch_mesh_steps.py``), for reduced yi-6b and
   granite-moe-1b-a400m, the train step under megatron, zero1 and fsdp and
   the prefill and decode steps under each: every rank's ``BoundMesh.traffic``
   after one real call equals the calls and bytes of the same rank's
-  trace, and ``parse_collectives`` of its listing.
+  trace, and ``parse_collectives`` of its listing; the param leaves the
+  call all-gathers over model are recorded.
 * The loop helper (``models.layers.time_scan``): rwkv6 and hymba at S = 64
   count with the scaled loop exactly the flops and transcendentals of the
   unrolled loop, forward (prefill) and forward + backward (train); the
@@ -45,9 +62,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch._tree import tree_leaves
 from repro_torch.analysis.hlo import parse_collectives
 from repro_torch.analysis.program import trace_step
-from repro_torch.configs import get_config
+from repro_torch.configs import INPUT_SHAPES, get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.launch import multiprocess as mp
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
@@ -62,14 +80,15 @@ torch.set_num_threads(1)
 TRAIN = InputShape("train_4k", 64, 4, "train")        # tests/test_dryrun.py's SHAPE
 DECODE = InputShape("decode_32k", 128, 4, "decode")   # and DEC
 FLOP_RTOL = 0.01
-FLOP_CASES = [(a, k, m) for m in ((1, 1), (2, 1))
+REFERENCE_PROCESSES = 3              # the reference compiles FLOP_CASES in this many processes
+FLOP_CASES = [(a, k, m) for m in ((1, 1), (2, 1), (1, 2), (2, 2))
               for a in ("yi-6b", "rwkv6-1.6b", "hymba-1.5b", "seamless-m4t-large-v2",
                         "granite-moe-1b-a400m")
               for k in ("train", "decode") if (a, k) != ("granite-moe-1b-a400m", "train")]
 
 REFERENCE = r"""
 import os, json, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import dataclasses
 import jax
 from repro.analysis.hlo_graph import analyze_hlo
@@ -98,14 +117,28 @@ torch.set_num_threads(1)
 from repro_torch.launch import multiprocess as mp
 rank, nproc, _ = mp.initialize_worker(device="cpu")
 import torch.distributed as dist
+from repro_torch._tree import tree_leaves
 from repro_torch.analysis.hlo import parse_collectives
 from repro_torch.analysis.program import trace_step
 from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.mesh import bind_mesh, make_debug_mesh
-from repro_torch.launch.sharding import shard_tree
+from repro_torch.launch.sharding import map_with_path, shard_tree
 from repro_torch.launch.steps import adam_init_f32, build_sharded_step, make_prefill_step
 from repro_torch.models import build_model
+
+gathered = []                   # (id of the gathered block, the axes) of each all_gather
+_gather = mesh_mod.RankView.gather
+
+
+def gather(self, x, spec, axes=None):
+    gathered.append((id(x), [a for d in mesh_mod.spec_axes(spec, x.ndim) for a in d]
+                     if axes is None else list(axes)))
+    return _gather(self, x, spec, axes)
+
+
+mesh_mod.RankView.gather = gather
 
 out_dir, spec = sys.argv[1], json.loads(sys.argv[2])
 B, S = 4, 16
@@ -129,13 +162,18 @@ try:
         fn, _, in_sh, _ = build_sharded_step(cfg, shape, bm, strategy)
         for k in bm.traffic:
             bm.traffic[k] = {"calls": 0, "bytes": 0}
-        fn(*[shard_tree(x, sh) for x, sh in zip(inputs, in_sh)])
+        blocks = [shard_tree(x, sh) for x, sh in zip(inputs, in_sh)]
+        paths = {id(t): p for p, t in zip(tree_leaves(map_with_path(lambda p, t: p, blocks[0])),
+                                          tree_leaves(blocks[0]))}
+        gathered.clear()
+        fn(*blocks)
+        param_gathers = sorted({paths[i] for i, axes in gathered if i in paths and "model" in axes})
         fn, args, in_sh, _ = build_sharded_step(cfg, shape, mesh, strategy)
         cost, listing, _ = trace_step(fn, args, in_sh, mesh, rank)
         res["/".join((arch, kind, strategy))] = {
             "measured": {k: dict(v) for k, v in bm.traffic.items()},
             "traced": {"bytes": cost.collective_by_kind, "calls": cost.collective_calls_by_kind},
-            "parsed": parse_collectives(listing).to_dict()}
+            "parsed": parse_collectives(listing).to_dict(), "param_gathers": param_gathers}
     with open(f"{out_dir}/rank{rank}.json", "w") as f:
         json.dump(res, f)
 finally:
@@ -163,17 +201,24 @@ def runs(tmp_path_factory):
     threads = [threading.Thread(target=gang, args=(m,)) for m in GANG_MESHES]
     for t in threads:
         t.start()
-    ref = subprocess.run([sys.executable, "-c", REFERENCE, json.dumps(FLOP_CASES)], env=_env(),
-                         capture_output=True, text=True, timeout=SPAWN_TIMEOUT)
+    # the reference's compiles, in REFERENCE_PROCESSES processes side by side
+    refs = [subprocess.Popen([sys.executable, "-c", REFERENCE,
+                              json.dumps(FLOP_CASES[i::REFERENCE_PROCESSES])], env=_env(),
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i in range(REFERENCE_PROCESSES)]
+    outs = [p.communicate(timeout=SPAWN_TIMEOUT) for p in refs]
     for t in threads:
         t.join(timeout=SPAWN_TIMEOUT + 30)
         assert not t.is_alive(), "a gang outlived its timeout"
     assert codes == {m: 0 for m in GANG_MESHES}, f"the gangs exited {codes}"
-    assert ref.returncode == 0, ref.stderr[-3000:]
-    line = next(x for x in ref.stdout.splitlines() if x.startswith("REFERENCE "))
+    flops = {}
+    for p, (out, err) in zip(refs, outs):
+        assert p.returncode == 0, err[-3000:]
+        line = next(x for x in out.splitlines() if x.startswith("REFERENCE "))
+        flops.update(json.loads(line[len("REFERENCE "):]))
     ranks = {m: [json.loads((dirs[m] / f"rank{r}.json").read_text()) for r in range(m[0] * m[1])]
              for m in GANG_MESHES}
-    return ranks, json.loads(line[len("REFERENCE "):])
+    return ranks, flops
 
 
 def _trace(arch, shape, mesh, rank=0, **kwargs):
@@ -219,6 +264,81 @@ def test_traced_collectives_equal_the_measured_traffic(runs, mesh, case):
         assert got["traced"]["calls"] == {k: t["calls"] for k, t in measured.items()}, r
         assert got["parsed"]["bytes_by_kind"] == got["traced"]["bytes"], r
         assert got["parsed"]["count_by_kind"] == got["traced"]["calls"], r
+
+
+@pytest.mark.parametrize("mesh", GANG_MESHES, ids=[f"{m[0]}x{m[1]}" for m in GANG_MESHES])
+def test_real_tensor_parallel_calls_gather_no_param(runs, mesh):
+    """Every rank's real megatron and zero1 calls (train, prefill, decode)
+    all-gather no param leaf over model: each computes with its blocks."""
+    for r, rec in enumerate(runs[0][mesh]):
+        for case, got in rec.items():
+            if not case.endswith("/fsdp"):
+                assert got["param_gathers"] == [], (r, case)
+
+
+# The leaves tp_gathers names for the reduced archs on a model axis of 2.
+RULE_LEAVES = {"paligemma-3b": ["layers/attn/wk/w", "layers/attn/wv/w"],
+               "hymba-1.5b": ["layers/hymba/mamba/in_proj/w"]}
+TP_ARCHS = ("yi-6b", "chatglm3-6b", "paligemma-3b", "rwkv6-1.6b", "hymba-1.5b",
+            "seamless-m4t-large-v2", "granite-moe-1b-a400m")
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_traced_tensor_parallel_steps_gather_only_the_rule_leaves(monkeypatch, arch, mesh):
+    """The traced megatron train and decode steps and the zero1 train step
+    all-gather over model only the param leaves ``fn.gathered`` lists, and
+    those are the rule's (``RULE_LEAVES``)."""
+    from repro_torch.analysis import program
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.sharding import map_with_path
+
+    seen, blocks = [], []
+    gather, block_specs = mesh_mod.RankView.gather, program.block_specs
+
+    def spy(self, x, spec, axes=None):
+        seen.append((id(x), [a for d in mesh_mod.spec_axes(spec, x.ndim) for a in d]
+                     if axes is None else list(axes)))
+        return gather(self, x, spec, axes)
+
+    def keep(*args):
+        blocks.append(block_specs(*args))
+        return blocks[-1]
+
+    monkeypatch.setattr(mesh_mod.RankView, "gather", spy)
+    monkeypatch.setattr(program, "block_specs", keep)
+    m = make_debug_mesh(*mesh)
+    for shape, strategy in ((TRAIN, "megatron"), (DECODE, "megatron"), (TRAIN, "zero1")):
+        fn, args, in_sh, _ = build_sharded_step(get_config(arch).reduced(), shape, m, strategy)
+        seen.clear()
+        trace_step(fn, args, in_sh, m, m.size - 1)
+        params = blocks[-1][0]
+        paths = {id(t): p for p, t in zip(
+            tree_leaves(map_with_path(lambda p, t: p, params)), tree_leaves(params))}
+        got = sorted({paths[i] for i, axes in seen if i in paths and "model" in axes})
+        assert got == fn.gathered == RULE_LEAVES.get(arch, []), (shape.kind, strategy)
+
+
+def test_the_gather_rule_at_model_16():
+    """On 16x16 the rule lists the attention leaves whose blocks cut inside
+    a head and Mamba's in_proj, and nothing under fsdp."""
+    mesh = make_production_mesh()
+    want = {
+        "yi-6b": ["layers/attn/wk/w", "layers/attn/wv/w"],                 # 4 KV heads
+        "chatglm3-6b": ["layers/attn/wk/b", "layers/attn/wk/w",           # 2 KV heads
+                        "layers/attn/wv/b", "layers/attn/wv/w"],
+        "paligemma-3b": ["layers/attn/wk/w", "layers/attn/wq/w",          # 8 heads, 1 KV
+                         "layers/attn/wv/w"],
+        "hymba-1.5b": ["layers/hymba/attn/wk/w", "layers/hymba/attn/wq/w",  # 25 heads, 5 KV
+                       "layers/hymba/attn/wv/w", "layers/hymba/mamba/in_proj/w"],
+        "rwkv6-1.6b": [],
+        "seamless-m4t-large-v2": [],                                      # 16 KV heads
+    }
+    for arch, leaves in want.items():
+        for strategy in ("megatron", "zero1", "fsdp"):
+            fn, _, _, _ = build_sharded_step(get_config(arch), INPUT_SHAPES["decode_32k"], mesh,
+                                             strategy)
+            assert sorted(fn.gathered) == (leaves if strategy != "fsdp" else []), (arch, strategy)
 
 
 def test_parse_collectives_reads_the_listing():

@@ -280,6 +280,7 @@ REFERENCE_KEYS = {"arch", "shape", "mesh", "chips", "kind", "strategy", "status"
                   "model_flops_per_chip", "useful_flops_ratio", "active_params",
                   "total_params", "total_s"}
 XLA_ONLY = {"lower_s", "compile_s"}
+PORT_ONLY = {"gathered_leaves"}     # the param leaves gathered under steps.tp_gathers' rule
 ROOFLINE_KEYS = {"compute_s", "memory_s", "collective_s", "bottleneck", "memory_s_hlo_upper"}
 HLO_COST_KEYS = {"flops", "traffic_bytes", "collective_bytes", "collective_by_kind",
                  "flops_unscaled", "transcendentals", "collective_calls_by_kind"}
@@ -290,17 +291,19 @@ HLO_COST_KEYS = {"flops", "traffic_bytes", "collective_bytes", "collective_by_ki
                                              ("rwkv6-1.6b", "prefill_32k")])
 def test_dryrun_record_schema(arch, shape_name):
     """As tests/test_launchers.py:63-91: reduced configs and scaled shapes on
-    a (2, 2) mesh, with the reference's schema less the XLA-only fields."""
+    a (2, 2) mesh, with the reference's schema less the XLA-only fields and
+    with the port's list of gathered leaves."""
     shape = InputShape(shape_name, 64, 4, INPUT_SHAPES[shape_name].kind)
     rec = dryrun.run_one(arch, shape_name, multi_pod=False, mesh=make_debug_mesh(2, 2),
                          cfg=get_config(arch).reduced(), shape=shape)
     assert rec["status"] == "ok", rec.get("error")
-    assert set(rec) == REFERENCE_KEYS - XLA_ONLY
+    assert set(rec) == REFERENCE_KEYS - XLA_ONLY | PORT_ONLY
+    assert rec["gathered_leaves"] == []      # every head and channel block is whole
     assert rec["mesh"] == "2x2" and rec["chips"] == 4 and rec["kind"] == shape.kind
     rl = rec["roofline"]
     assert set(rl) == ROOFLINE_KEYS
     assert rl["compute_s"] > 0 and rl["memory_s"] > 0 and rl["memory_s_hlo_upper"] > 0
-    assert rl["collective_s"] > 0          # every (2, 2) step gathers its params over model
+    assert rl["collective_s"] > 0          # every (2, 2) step sums partial products over model
     assert rl["bottleneck"] == max(("compute", "memory", "collective"),
                                    key=lambda k: rl[f"{k}_s"])
     assert set(rec["memory_analysis"]) == {"argument_size_in_bytes", "output_size_in_bytes",
@@ -352,7 +355,8 @@ def test_dryrun_cli_writes_every_record_and_the_report_reads_them(tmp_path):
     assert len(recs) == 5 and all(r["status"] == "ok" for r in recs)
     table = report.roofline_table(recs)
     assert len(table.splitlines()) == 7 and "| - |" not in table
-    # every decode record gathers its params each token: collective-bound
+    # yi-6b's 4 KV heads do not divide model 16: its decode steps gather wk and wv
+    # (steps.tp_gathers), and are collective-bound
     decode = [r for r in recs if r["kind"] == "decode"]
     assert decode and all(r["roofline"]["bottleneck"] == "collective" for r in decode)
     assert "dominant all-gather" in table

@@ -21,7 +21,15 @@ gathers them and holds them against the single-device result:
   model axis. The output, the aux loss and the grads of sum(out^2) + aux
   against the reference's sharded MoE at the same tolerances.
 * ``build_sharded_step`` for reduced yi-6b, granite-moe-1b-a400m and
-  rwkv6-1.6b under megatron, zero1, fsdp and megatron with 2 microbatches:
+  rwkv6-1.6b under megatron, zero1, fsdp and megatron with 2 microbatches,
+  and, on both meshes, the megatron train and decode steps of one reduced
+  arch of each family those do not cover: chatglm3-6b (GQA, QKV bias),
+  paligemma-3b (a VLM prefix, one KV head: on (1, 2) its ``wk``/``wv`` are
+  gathered), hymba-1.5b (Mamba beside attention) and
+  seamless-m4t-large-v2 (encoder-decoder), and reduced yi-6b with 9 query
+  and 3 KV heads (``CUT_HEADS``: a model axis of 2 cuts inside a head, so
+  ``wq``/``wk``/``wv`` are gathered and each rank computes the 5 heads its
+  block of ``wo`` touches, grouped unevenly over their KV heads):
   the train step's loss, moments and gathered params against the
   single-device step at PR 20's rule (tests/test_torch_lm_substrate.py:
   loss and moments rtol 1e-5; params rtol 1e-5 where |g| >= 1e-6, else
@@ -46,6 +54,8 @@ from repro_torch.launch import multiprocess as mp
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 SPAWN_TIMEOUT = 240                  # seconds a gang may take
 ARCHS = ("yi-6b", "granite-moe-1b-a400m", "rwkv6-1.6b")
+CUT_HEADS = "yi-6b:9x3"               # reduced yi-6b with 9 query and 3 KV heads of 64
+FAMILIES = ("chatglm3-6b", "paligemma-3b", "hymba-1.5b", "seamless-m4t-large-v2", CUT_HEADS)
 TRAIN = (("megatron", 1), ("zero1", 1), ("fsdp", 1), ("megatron", 2))
 SERVE = ("megatron", "zero1", "fsdp")
 GRANITE_FACTOR = 1.25                # configs/granite_moe_1b.py's capacity factor
@@ -53,12 +63,13 @@ MOE_SHAPE = (4, 8)                   # B, S of the MoE inputs
 
 
 def _cases(mesh):
+    families = [(a, k, "megatron", 1) for a in FAMILIES for k in ("train", "decode")]
     if mesh == (2, 2):
         steps = [(a, "train", s, m) for a in ARCHS for s, m in TRAIN]
         steps += [(a, k, s, 1) for a in ARCHS for k in ("prefill", "decode") for s in SERVE]
-        return {"mesh": list(mesh), "factor": None, "steps": steps}
+        return {"mesh": list(mesh), "factor": None, "steps": steps + families}
     steps = [("granite-moe-1b-a400m", k, "megatron", 1) for k in ("train", "prefill", "decode")]
-    return {"mesh": list(mesh), "factor": GRANITE_FACTOR, "steps": steps}
+    return {"mesh": list(mesh), "factor": GRANITE_FACTOR, "steps": steps + families}
 
 
 def _case_id(case):
@@ -80,6 +91,7 @@ from repro_torch.configs.base import InputShape
 from repro_torch.launch import pspec
 from repro_torch.launch.mesh import bind_mesh, make_debug_mesh
 from repro_torch.launch.sharding import P, gather_tree, shard_tree
+from repro_torch.launch.specs import cfg_for_shape
 from repro_torch.launch.steps import (LR, adam_init_f32, build_sharded_step, make_decode_step,
                                       make_prefill_step, make_train_step)
 from repro_torch.models import build_model
@@ -92,7 +104,11 @@ D = bm.shape["data"]
 
 
 def config(arch):
+    arch, _, heads = arch.partition(":")     # "<arch>:<H>x<KV>" overrides the heads
     cfg = get_config(arch).reduced()
+    if heads:
+        H, KV = map(int, heads.split("x"))
+        cfg = dataclasses.replace(cfg, num_heads=H, num_kv_heads=KV, head_dim=cfg.head_dim)
     return dataclasses.replace(cfg, moe_capacity_factor=spec["factor"]) if spec["factor"] else cfg
 
 
@@ -133,7 +149,13 @@ def batch_of(cfg, seed, masked):
         b["labels"][0, :3] = -100
     if cfg.family == "vlm":
         b["prefix"] = rng.standard_normal((B, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        b["frames"] = frames_of(cfg, rng, S)
     return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def frames_of(cfg, rng, seq):
+    return rng.standard_normal((B, seq // cfg.encoder_ratio, cfg.d_model)).astype(np.float32)
 
 
 def step_case(arch, kind, strategy, mb):
@@ -146,15 +168,18 @@ def step_case(arch, kind, strategy, mb):
     batch = batch_of(cfg, 1, masked=split == 1)
     fails = []
     if kind == "train":
-        fn, _, in_sh, out_sh = build_sharded_step(cfg, InputShape("t", S, B, "train"), bm,
-                                                  strategy, microbatches=mb)
+        shape = InputShape("t", S, B, "train")
+        fn, _, in_sh, out_sh = build_sharded_step(cfg, shape, bm, strategy, microbatches=mb)
         opt = adam_init_f32(params)
         p, o, loss = fn(shard_tree(params, in_sh[0]), shard_tree(opt, in_sh[1]),
                         shard_tree(batch, in_sh[2]))
         p, o = gather_tree(p, out_sh[0]), gather_tree(o, out_sh[1])
         if rank:
             return fails
-        wp, wo, wloss = make_train_step(cfg, microbatches=split)(params, opt, batch)
+        # the config the step runs: the train shape's (no sliding window, which
+        # a VLM's prefix would reach)
+        wp, wo, wloss = make_train_step(cfg_for_shape(cfg, shape), microbatches=split)(
+            params, opt, batch)
         if abs(float(loss) - float(wloss)) > 1e-5 * abs(float(wloss)):
             fails.append(f"loss {float(loss)!r} vs {float(wloss)!r}")
         if int(o.step) != int(wo.step):
@@ -190,6 +215,8 @@ def step_case(arch, kind, strategy, mb):
     fn, _, in_sh, out_sh = build_sharded_step(cfg, InputShape("d", n_cache, B, "decode"), bm,
                                               strategy)
     pb = {k: v for k, v in batch.items() if k != "labels"}
+    if cfg.is_encdec:       # the encoder memory the decode shape's cache holds
+        pb["frames"] = torch.from_numpy(frames_of(cfg, np.random.default_rng(2), n_cache))
     _, cache = make_prefill_step(cfg, n_cache)(params, pb)
     tok = batch["tokens"][:, -1:]
     logits, new = fn(shard_tree(params, in_sh[0]), shard_tree(cache, in_sh[1]),
