@@ -15,7 +15,9 @@ observability contract end to end:
   need slack). The gate holds what the instrumentation costs a run: the
   spans and events an enabled run records, times what one span costs to
   enter and leave with telemetry on less what it costs with it off
-  (``SPAN_PROBES`` empty spans a mode), over the median disabled run. The wall-clock
+  (``SPAN_PROBES`` empty device spans a mode: on the card each records its
+  pair of CUDA events, and each is resolved as ``records()`` does), over
+  the median disabled run. The wall-clock
   overhead of ``REPEATS`` adjacent off/on pairs (order alternating; the
   median of each pair's enabled over disabled time) is printed beside it
   but not gated: this host-bound loop's identical runs drift by more than
@@ -73,9 +75,10 @@ def _run_once(device):
 
 
 def span_seconds(n: int = SPAN_PROBES) -> float:
-    """Seconds one empty span costs to enter and leave with telemetry on,
-    less what it costs with telemetry off; leaves telemetry disabled and
-    no span recorded."""
+    """Seconds one empty device span costs to enter, leave and resolve
+    with telemetry on (the dearest kind: on the card, a pair of CUDA events
+    recorded and read back), less what it costs with telemetry off; leaves
+    telemetry disabled and no span recorded."""
     from repro_torch import telemetry
 
     cost = {}
@@ -84,8 +87,9 @@ def span_seconds(n: int = SPAN_PROBES) -> float:
         (telemetry.enable if on else telemetry.disable)()
         t0 = time.perf_counter()
         for i in range(n):
-            with telemetry.span("probe", i=i):
+            with telemetry.device_span("probe", i=i):
                 pass
+        telemetry.records()
         cost[on] = (time.perf_counter() - t0) / n
     telemetry.reset()
     return cost[True] - cost[False]

@@ -295,12 +295,18 @@ def run_cohort_rounds(
 
     if backend not in ("vmap", "shard_map"):
         raise ValueError(f"unknown backend {backend!r}")
+    if backend == "shard_map" and cfg.rounds > 0 and process_count() > 1:
+        raise NotImplementedError(
+            "cohort streaming runs on a single-process mesh; multi-"
+            "process runs keep the one-client-per-shard layout (unset "
+            "max_concurrent_clients / use aggregation_mode='sync', and "
+            "with secure aggregation use secure_agg_mode='pairwise' — "
+            "the in-jit masks that cancel in the cross-process psum)"
+        )
     dev = resolve_device(device)
     K = cfg.num_clients
     t0 = time.time()
-    run = setup_run(cfg, g, dev, params, pack)
-    gparams = run.params
-
+    call = telemetry.call_id()
     cohort_report: Dict[str, Any] = {
         "mode": cfg.aggregation_mode,
         "max_concurrent_clients": cfg.max_concurrent_clients,
@@ -310,83 +316,82 @@ def run_cohort_rounds(
         ),
         "joined": 0,
         "dropped": 0,
+        "lanes": 0,
+        "cohorts_per_round": 0,
     }
+    with telemetry.span("setup", call=call, backend=backend):
+        run = setup_run(cfg, g, dev, params, pack)
+        gparams = run.params
+        if cfg.rounds > 0:
+            lanes = cohort_lanes(cfg, backend)
+            mesh = Mesh("lanes", lanes, 1, dev) if backend == "shard_map" else None
+            with telemetry.span("optimizer_bank"):
+                bank = ClientOptimizers(gparams, K)
+                server_state = adam_init(gparams)
+            with telemetry.span("plan"):
+                _, chosen_sched = selection_schedule(cfg)
+                plans = plan_rounds(cfg, chosen_sched, lanes)
+                cohort_report["lanes"] = lanes
+                cohort_report["cohorts_per_round"] = max(p.ids.shape[0] for p in plans)
+                cohort_report["joined"] = sum(p.joined for p in plans)
+                cohort_report["dropped"] = sum(p.dropped for p in plans)
+                # Churn accounting in the process-wide registry (always on).
+                telemetry.counter("federated.cohort.joined").inc(cohort_report["joined"])
+                telemetry.counter("federated.cohort.dropped").inc(cohort_report["dropped"])
+            with telemetry.span("stager"):
+                stager = _CohortStager(
+                    g, part=run.part, lanes=lanes, per_client_nb=cfg.method == "distgat",
+                    capacity=max(8, 2 * plans[0].ids.shape[0]), device=dev,
+                )
+            with telemetry.span("client_masks"):
+                shared_nb = torch.as_tensor(g.nbr_mask, device=dev)
+            priv = cfg.privacy
+            protocol = priv.secure_agg_protocol
+            noise_base, mask_base = noise_base_key(cfg.seed), mask_base_key(cfg.seed)
+            if protocol:
+                gvec0, unflatten = flatten_pytree(gparams)
+                dim = int(gvec0.size)
     if cfg.rounds == 0:
-        cohort_report.update(lanes=0, cohorts_per_round=0)
-        return build_result(
-            cfg=cfg, params=gparams, val_curve=[], test_curve=[],
-            part=run.part, g=g, seconds=time.time() - t0, cohort=cohort_report,
-        )
-
-    lanes = cohort_lanes(cfg, backend)
-    mesh = None
-    if backend == "shard_map":
-        if process_count() > 1:
-            raise NotImplementedError(
-                "cohort streaming runs on a single-process mesh; multi-"
-                "process runs keep the one-client-per-shard layout (unset "
-                "max_concurrent_clients / use aggregation_mode='sync', and "
-                "with secure aggregation use secure_agg_mode='pairwise' — "
-                "the in-jit masks that cancel in the cross-process psum)"
+        with telemetry.span("report", call=call):
+            return build_result(
+                cfg=cfg, params=gparams, val_curve=[], test_curve=[],
+                part=run.part, g=g, seconds=time.time() - t0, cohort=cohort_report,
             )
-        mesh = Mesh("lanes", lanes, 1, dev)
-    protocol = cfg.privacy.secure_agg_protocol
-    bank = ClientOptimizers(gparams, K)
-    server_state = adam_init(gparams)
-
-    _, chosen_sched = selection_schedule(cfg)
-    plans = plan_rounds(cfg, chosen_sched, lanes)
-    cohort_report["lanes"] = lanes
-    cohort_report["cohorts_per_round"] = max(p.ids.shape[0] for p in plans)
-    cohort_report["joined"] = sum(p.joined for p in plans)
-    cohort_report["dropped"] = sum(p.dropped for p in plans)
-    # Churn accounting in the process-wide registry (always on).
-    telemetry.counter("federated.cohort.joined").inc(cohort_report["joined"])
-    telemetry.counter("federated.cohort.dropped").inc(cohort_report["dropped"])
-
-    stager = _CohortStager(
-        g, part=run.part, lanes=lanes, per_client_nb=cfg.method == "distgat",
-        capacity=max(8, 2 * plans[0].ids.shape[0]), device=dev,
-    )
-    shared_nb = torch.as_tensor(g.nbr_mask, device=dev)
-    priv = cfg.privacy
-    noise_base, mask_base = noise_base_key(cfg.seed), mask_base_key(cfg.seed)
-    if protocol:
-        gvec0, unflatten = flatten_pytree(gparams)
-        dim = int(gvec0.size)
 
     val_curve: List[float] = []
     test_curve: List[float] = []
     for t in range(cfg.rounds):
         plan = plans[t]
-        agg = running_init(gparams)
-        g_round = gparams              # every cohort dispatches from here
-        if protocol:
-            # Key agreement and secret sharing over the ADVERTISED cohort,
-            # the pre-churn CS(t) selection: clients that later drop are
-            # the ones whose masks the recovery phase removes.
-            with telemetry.span("secure_agg_setup", round=t):
-                advertised = sorted({int(c) for c in np.asarray(chosen_sched[t]).reshape(-1)})
-                sar = SecureAggRound(
-                    cfg.seed, t, advertised, dim,
-                    quant_bits=priv.quant_bits, quant_range=priv.quant_range,
-                    threshold=priv.secure_agg_threshold,
-                )
-                gvec = flatten_pytree(g_round)[0]
-            lam_by: Dict[int, float] = {}
-            vec_by: Dict[int, np.ndarray] = {}
-        with telemetry.span("round", round=t, backend=backend, cohorts=int(plan.ids.shape[0])):
+        with telemetry.device_span("round", call=call, round=t, backend=backend,
+                                   cohorts=plan.ids.shape[0]):
+            agg = running_init(gparams)
+            g_round = gparams              # every cohort dispatches from here
+            if protocol:
+                # Key agreement and secret sharing over the ADVERTISED
+                # cohort, the pre-churn CS(t) selection: clients that later
+                # drop are the ones whose masks the recovery phase removes.
+                with telemetry.span("secure_agg_setup", round=t):
+                    advertised = sorted(
+                        {int(c) for c in np.asarray(chosen_sched[t]).reshape(-1)})
+                    sar = SecureAggRound(
+                        cfg.seed, t, advertised, dim,
+                        quant_bits=priv.quant_bits, quant_range=priv.quant_range,
+                        threshold=priv.secure_agg_threshold,
+                    )
+                    gvec = flatten_pytree(g_round)[0]
+                lam_by: Dict[int, float] = {}
+                vec_by: Dict[int, np.ndarray] = {}
             for c in range(plan.ids.shape[0]):
                 ids, w = plan.ids[c], plan.weights[c]
                 live = np.nonzero(w > 0)[0]
                 lam_c = float(plan.staleness[c])
-                with telemetry.span("cohort", cohort=c, live=int(live.size)):
+                with telemetry.span("cohort", cohort=c, live=live.size):
                     with telemetry.span("staging"):
                         nb, tr = stager(ids[live])
                     outs = []
                     for lane in live.tolist():
                         cid = int(ids[lane])
-                        with telemetry.span("step", client=cid):
+                        with telemetry.device_span("step", client=cid):
                             p = bank.local_phase(
                                 run.local_update, g_round, cid,
                                 shared_nb if nb is None else nb[lane], tr[lane],
@@ -404,8 +409,9 @@ def run_cohort_rounds(
                                 lam_by[cid] = lam_c
                                 vec_by[cid] = delta
                         elif priv.secure_agg:
-                            outs.append(add_client_mask(
-                                mask_base, t, cid, plan.sel_row, p, priv.mask_scale))
+                            with telemetry.span("secure_agg_mask"):
+                                outs.append(add_client_mask(
+                                    mask_base, t, cid, plan.sel_row, p, priv.mask_scale))
                         else:
                             outs.append(p)
                     if outs:
@@ -414,7 +420,7 @@ def run_cohort_rounds(
                                 agg, tree_map(lambda *ps: torch.stack(ps), *outs),
                                 w[live], scale=plan.staleness[c],
                             )
-            with telemetry.span("aggregate"):
+            with telemetry.device_span("aggregate"):
                 if protocol:
                     mean = _finalize_protocol_round(
                         sar, cfg, t, dim, priv, lam_by, vec_by, gvec, unflatten
@@ -426,14 +432,15 @@ def run_cohort_rounds(
                         g_round, mean, server_state, cfg.server_lr)
                 else:
                     gparams = mean
-            with telemetry.span("evaluate"):
+            with telemetry.device_span("evaluate"):
                 va, ta = run.evaluate(gparams)
         val_curve.append(va)
         test_curve.append(ta)
-        record_epsilon(cfg, t)
+        record_epsilon(cfg, t, call)
 
-    return build_result(
-        cfg=cfg, params=gparams, val_curve=val_curve,
-        test_curve=test_curve, part=run.part, g=g, seconds=time.time() - t0,
-        mesh=mesh, cohort=cohort_report,
-    )
+    with telemetry.span("report", call=call):
+        return build_result(
+            cfg=cfg, params=gparams, val_curve=val_curve,
+            test_curve=test_curve, part=run.part, g=g, seconds=time.time() - t0,
+            mesh=mesh, cohort=cohort_report,
+        )

@@ -238,9 +238,11 @@ def grad_of(loss_fn: Callable, params: Tree, *args) -> Tree:
     """Gradient of ``loss_fn(params, *args)`` with respect to every leaf of
     ``params``, as a tree of the same structure."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    with torch.enable_grad():
+    with torch.enable_grad(), telemetry.device_span("forward"):
         loss = loss_fn(tree_unflatten(params, leaves), *args)
-    return tree_unflatten(params, list(torch.autograd.grad(loss, leaves)))
+    with telemetry.device_span("backward"):
+        grads = torch.autograd.grad(loss, leaves)
+    return tree_unflatten(params, list(grads))
 
 
 def make_local_update(loss_fn: Callable, cfg: FederatedConfig) -> Callable:
@@ -257,14 +259,17 @@ def make_local_update(loss_fn: Callable, cfg: FederatedConfig) -> Callable:
     def local_update(gparams, opt_state, nb_mask, tr_mask, noise_seed):
         params = gparams
         for _ in range(cfg.local_steps):
-            grads = grad_of(loss_fn, params, nb_mask, tr_mask)
-            if cfg.aggregator == "fedprox":
-                grads = fedprox_grad(params, gparams, grads, cfg.prox_mu)
-            params, opt_state = adam_update(
-                grads, opt_state, params, cfg.lr, weight_decay=cfg.weight_decay
-            )
+            with telemetry.device_span("local_step"):
+                grads = grad_of(loss_fn, params, nb_mask, tr_mask)
+                with telemetry.device_span("optimizer"):
+                    if cfg.aggregator == "fedprox":
+                        grads = fedprox_grad(params, gparams, grads, cfg.prox_mu)
+                    params, opt_state = adam_update(
+                        grads, opt_state, params, cfg.lr, weight_decay=cfg.weight_decay
+                    )
         if dp is not None:
-            params = dp(noise_seed, gparams, params)
+            with telemetry.span("dp"):
+                params = dp(noise_seed, gparams, params)
         return params, opt_state
 
     return local_update
@@ -363,7 +368,8 @@ def build_result(
         num_selected=num_selected(cfg), pack_released=pack_released(cfg),
         node_influence=node_influence,
     )
-    comm = comm_report(cfg, g, part)
+    with telemetry.span("comm"):
+        comm = comm_report(cfg, g, part)
     if telemetry.enabled():
         telemetry.gauge("federated.rounds").set(float(cfg.rounds))
         telemetry.gauge("federated.seconds").set(float(seconds))
@@ -414,16 +420,20 @@ class RunSetup(NamedTuple):
 
 def setup_run(cfg: FederatedConfig, g: Graph, dev: torch.device,
               params: Optional[Any], pack: Optional[Any]) -> RunSetup:
-    part = dirichlet_partition(g.labels, cfg.num_clients, cfg.beta, cfg.seed)
-    init_fn, forward = build_forward(cfg, g, dev, pack)
-    if params is None:
-        gparams = init_fn(torch.Generator().manual_seed(cfg.seed))
-    else:
-        gparams = param_tree(params_from_numpy(params, device=dev))
-    labels = torch.as_tensor(g.labels, dtype=torch.int64, device=dev)
-    val_mask = torch.as_tensor(g.val_mask, device=dev)
-    test_mask = torch.as_tensor(g.test_mask, device=dev)
-    full_mask = torch.as_tensor(g.nbr_mask, device=dev)
+    with telemetry.span("model_build"):
+        # The arrays go to the card first, so that the card's first copy
+        # starts with the call and not after the host's partition.
+        labels = torch.as_tensor(g.labels, dtype=torch.int64, device=dev)
+        val_mask = torch.as_tensor(g.val_mask, device=dev)
+        test_mask = torch.as_tensor(g.test_mask, device=dev)
+        full_mask = torch.as_tensor(g.nbr_mask, device=dev)
+        init_fn, forward = build_forward(cfg, g, dev, pack)
+        if params is None:
+            gparams = init_fn(torch.Generator().manual_seed(cfg.seed))
+        else:
+            gparams = param_tree(params_from_numpy(params, device=dev))
+    with telemetry.span("partition"):
+        part = dirichlet_partition(g.labels, cfg.num_clients, cfg.beta, cfg.seed)
 
     def evaluate(p):
         with torch.inference_mode():
@@ -461,16 +471,19 @@ class ClientOptimizers:
         return p
 
 
-def record_epsilon(cfg: FederatedConfig, t: int) -> None:
+def record_epsilon(cfg: FederatedConfig, t: int, call: Optional[int] = None) -> None:
     """Host-side ε trajectory for traced DP runs: the accountant's value
-    after round ``t``, as the ``privacy.epsilon`` gauge and an event."""
+    after round ``t``, as the ``privacy.epsilon`` gauge and an event, under
+    a ``privacy.accounting`` span of the call ``call``."""
     priv = cfg.privacy
     if not (telemetry.enabled() and priv.dp_enabled):
         return
-    q = num_selected(cfg) / cfg.num_clients
-    eps = compute_epsilon(priv.noise_multiplier, t + 1, q, priv.delta)
-    telemetry.gauge("privacy.epsilon").set(eps)
-    telemetry.event("privacy.round", round=t, epsilon=telemetry.gauge("privacy.epsilon").value)
+    with telemetry.span("privacy.accounting", call=call, round=t):
+        q = num_selected(cfg) / cfg.num_clients
+        eps = compute_epsilon(priv.noise_multiplier, t + 1, q, priv.delta)
+        telemetry.gauge("privacy.epsilon").set(eps)
+        telemetry.event("privacy.round", round=t,
+                        epsilon=telemetry.gauge("privacy.epsilon").value)
 
 
 # ---------------------------------------------------------------------------
@@ -566,47 +579,55 @@ class Trainer:
 
     def _run_vmap(self, g: Graph, params: Optional[Any], pack: Optional[Any]) -> Dict[str, Any]:
         cfg, dev = self.cfg, self.device
-        run = setup_run(cfg, g, dev, params, pack)
-        nb_masks, tr_masks = client_masks(cfg, g, run.part, dev)
-        bank = ClientOptimizers(run.params, cfg.num_clients)
-        server_state = adam_init(run.params)
-        priv = cfg.privacy
-        noise_base, mask_base = noise_base_key(cfg.seed), mask_base_key(cfg.seed)
-        sel_sched, chosen_sched = selection_schedule(cfg)
-
-        def round_step(gparams, server_state, t):
-            client_params = []
-            for c in chosen_sched[t].tolist():
-                p = bank.local_phase(run.local_update, gparams, c, nb_masks[c].contiguous(),
-                                     tr_masks[c], client_round_key(noise_base, t, c))
-                if priv.secure_agg:
-                    # Each selected client ships a masked update; the
-                    # pairwise masks cancel in the mean below.
-                    p = add_client_mask(mask_base, t, c, sel_sched[t], p, priv.mask_scale)
-                client_params.append(p)
-            stacked = tree_map(lambda *ps: torch.stack(ps), *client_params)
-            if cfg.aggregator == "fedadam":
-                return fedadam_server(gparams, stacked, server_state, cfg.server_lr)
-            return fedavg(stacked), server_state
+        call = telemetry.call_id()
+        with telemetry.span("setup", call=call, backend="vmap"):
+            run = setup_run(cfg, g, dev, params, pack)
+            with telemetry.span("client_masks"):
+                nb_masks, tr_masks = client_masks(cfg, g, run.part, dev)
+            with telemetry.span("optimizer_bank"):
+                bank = ClientOptimizers(run.params, cfg.num_clients)
+                server_state = adam_init(run.params)
+            priv = cfg.privacy
+            noise_base, mask_base = noise_base_key(cfg.seed), mask_base_key(cfg.seed)
+            sel_sched, chosen_sched = selection_schedule(cfg)
 
         gparams = run.params
         val_curve: List[float] = []
         test_curve: List[float] = []
         t0 = time.time()
         for t in range(cfg.rounds):
-            with telemetry.span("round", round=t, backend="vmap"):
-                with telemetry.span("step", selected=int(sel_sched[t].sum())):
-                    gparams, server_state = round_step(gparams, server_state, t)
-                with telemetry.span("evaluate"):
+            with telemetry.device_span("round", call=call, round=t, backend="vmap"):
+                client_params = []
+                for c in chosen_sched[t].tolist():
+                    with telemetry.device_span("step", client=c):
+                        p = bank.local_phase(run.local_update, gparams, c,
+                                             nb_masks[c].contiguous(), tr_masks[c],
+                                             client_round_key(noise_base, t, c))
+                    if priv.secure_agg:
+                        # Each selected client ships a masked update; the
+                        # pairwise masks cancel in the mean below.
+                        with telemetry.span("secure_agg_mask"):
+                            p = add_client_mask(mask_base, t, c, sel_sched[t], p,
+                                                priv.mask_scale)
+                    client_params.append(p)
+                with telemetry.device_span("aggregate"):
+                    stacked = tree_map(lambda *ps: torch.stack(ps), *client_params)
+                    if cfg.aggregator == "fedadam":
+                        gparams, server_state = fedadam_server(gparams, stacked, server_state,
+                                                               cfg.server_lr)
+                    else:
+                        gparams = fedavg(stacked)
+                with telemetry.device_span("evaluate"):
                     va, ta = run.evaluate(gparams)
             val_curve.append(va)
             test_curve.append(ta)
-            record_epsilon(cfg, t)
+            record_epsilon(cfg, t, call)
 
-        return build_result(
-            cfg=cfg, params=gparams, val_curve=val_curve,
-            test_curve=test_curve, part=run.part, g=g, seconds=time.time() - t0,
-        )
+        with telemetry.span("report", call=call):
+            return build_result(
+                cfg=cfg, params=gparams, val_curve=val_curve,
+                test_curve=test_curve, part=run.part, g=g, seconds=time.time() - t0,
+            )
 
 
 def run_federated(

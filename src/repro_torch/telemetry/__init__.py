@@ -4,10 +4,14 @@ The port's copy of ``repro.telemetry``:
 
 * **Spans** — ``with telemetry.span("round", round=t): ...`` nest through
   a thread-local stack (:class:`~repro_torch.telemetry.tracing.Tracer`),
-  time wall and process CPU, and export as Chrome-trace JSON. Off by
-  default: a disabled ``span()`` returns a shared no-op context manager.
+  time wall and process CPU, and export as Chrome-trace JSON.
+  ``device_span`` adds the stream time between CUDA events at entry and
+  exit, once CUDA is up; the spans of one call share the id
+  :func:`call_id` hands out (their ``call`` attribute). Off by default: a
+  disabled ``span()`` or ``device_span()`` returns a shared no-op context
+  manager.
 * **Events** — a bounded structured sink (``telemetry.event(...)``), fed
-  only when enabled.
+  only when enabled, stamped on the spans' clock (``t_ns``) as well.
 * **Metrics** — the counters, gauges and histograms of
   :mod:`repro_torch.telemetry.metrics`, always live.
 * **Manifests** — :func:`manifest` builds the per-run provenance block
@@ -24,6 +28,7 @@ at import: ``REPRO_TELEMETRY`` set to 1, true, yes or on enables, and
 from __future__ import annotations
 
 import atexit
+import itertools
 import json
 import os
 import sys
@@ -36,8 +41,9 @@ from repro_torch.telemetry.sink import EventSink
 from repro_torch.telemetry.tracing import NULL_SPAN, SpanRecord, Tracer
 
 __all__ = [
-    "EventSink", "NULL_SPAN", "SpanRecord", "Tracer", "build_manifest", "config_hash",
-    "configure", "counter", "disable", "enable", "enabled", "event", "events",
+    "EventSink", "NULL_SPAN", "SpanRecord", "Tracer", "build_manifest", "call_id",
+    "config_hash", "configure", "counter", "device_span", "disable", "enable", "enabled",
+    "event", "events",
     "export_chrome_trace", "gauge", "histogram", "manifest", "metrics",
     "metrics_snapshot", "records", "reset", "span", "tracer", "write_run",
 ]
@@ -48,6 +54,7 @@ _atexit_registered = False
 
 tracer = Tracer()
 _events = EventSink()
+_calls = itertools.count(1)
 
 
 def enabled() -> bool:
@@ -57,9 +64,11 @@ def enabled() -> bool:
 def enable(out_dir: Optional[str] = None) -> None:
     """Turn spans and events on (metrics are always live). With
     ``out_dir``, the run artifacts are written there at process exit (and
-    by any explicit :func:`write_run` call)."""
+    by any explicit :func:`write_run` call). Takes the tracer's clock
+    anchor."""
     global _enabled, _out_dir, _atexit_registered
     _enabled = True
+    tracer.take_anchor()
     if out_dir is not None:
         _out_dir = out_dir
         if not _atexit_registered:
@@ -89,8 +98,10 @@ def reset(reset_metrics: bool = False) -> None:
 
 
 def records() -> List[SpanRecord]:
-    """The spans recorded since the last :func:`reset`, in finish order."""
-    return list(tracer.records)
+    """The spans recorded since the last :func:`reset`, in finish order,
+    their device times resolved (which waits for the device spans' exit
+    events)."""
+    return list(tracer.resolve())
 
 
 def events() -> List[Dict[str, Any]]:
@@ -107,8 +118,23 @@ def span(name: str, /, **args):
     return tracer.span(name, **args)
 
 
+def device_span(name: str, /, **args):
+    """:func:`span` that also records the stream time between its entry
+    and exit (``SpanRecord.device_ns``) once CUDA is initialized; for the
+    boundaries that launch device work. Never initializes CUDA."""
+    if not _enabled:
+        return NULL_SPAN
+    return tracer.device_span(name, **args)
+
+
+def call_id() -> int:
+    """A fresh id for the spans of one call: the ``call`` attribute of its
+    top-level spans, which the spans inside inherit."""
+    return next(_calls)
+
+
 def event(name: str, /, **fields) -> None:
-    """Record a structured event ``{"event": name, "ts": ..., **fields}``
+    """Record a structured event ``{"event": name, "ts": ..., "t_ns": ..., **fields}``
     when telemetry is enabled; a no-op when disabled (the default)."""
     if _enabled:
         _events.emit(name, **fields)

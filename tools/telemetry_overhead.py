@@ -81,7 +81,7 @@ def main(argv=None) -> int:
 
     per_span = span_seconds(100_000)
     share = spans * per_span / statistics.median(off)
-    print(f"one empty span: {per_span * 1e6:.2f} us on less off; {spans} spans a run "
+    print(f"one empty device span: {per_span * 1e6:.2f} us on less off; {spans} spans a run "
           f"-> {spans * per_span * 1e3:.3f} ms, {100 * share:.4f}% of a run", flush=True)
     return 0
 
