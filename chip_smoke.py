@@ -22,7 +22,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    at the sbm_1m training shape from a real layer-1 input (with isolated and
    negative-denominator rows spliced in) and on the ragged layouts, and
    ``dx`` alone (training's request, the kernel's register path) at the
-   training shape.
+   training shape. 2c: the neighbour gathers' backward (``nbr_gather``'s
+   kernel) at the local step's three gathers (layer 1's scores, H 8 F 1;
+   layer 2's scores, H 1 F 1; layer 2's rows, H 1 F 40) over padded lists
+   of ogbn-arxiv's size: equal bits to its plain version and to a second
+   launch, within float32's reordering bound of the index backward in
+   float64; its time with and without its plan beside its bound, the
+   plain version and PyTorch's index backward.
 3. Serving: ``GraphInferenceServer`` with ``engine="kernel"`` answers 256
    Poisson queries at 2000 qps from 4 clients through ``MicroBatcher`` on
    ``sbm_1m`` with ``FedGATConfig()`` widths and seeded random weights. The
@@ -33,7 +39,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    4 clients, beta 1.0, fedavg, 3 rounds of 3 local steps) on ``sbm_1m``,
    counts zeroed just before and read just after: exactly
    rounds*n_sel*local_steps backward and rounds*(n_sel*local_steps + 1)
-   forward launches, finite params. Then the device times of one local
+   forward launches, 3 gather backwards a local step
+   (``GATHER_BWD_PER_STEP``), finite params. Then the device times of one local
    step and its parts, and the same config on ``tiny`` on the card against
    the CPU (curves to 1e-6, params to rtol 1e-3 / atol 1e-4).
 5. Kernel API: ``repro_torch.kernels``' ``flash_attn`` (causal, bf16 and
@@ -56,8 +63,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    host time, and each of the bucketed layer's cheb_attn launches is timed
    on its own inputs with its plan.
 6. Pack engines (the paper's Matrix and Vector FedGAT, plain float32
-   PyTorch: no kernel runs here, and every kernel's count, zeroed just
-   before each part, must read 0 just after it).
+   PyTorch: every kernel's count, zeroed just before each part, must read
+   0 just after it, but the gathers' backward, which a training step
+   launches ``GATHER_BWD_PER_STEP[engine]`` times, local steps counted as
+   calls of the trainer's ``grad_of``).
    6a: ``FedGATConfig()`` (engine ``matrix``) on ``sbm_100k``: the pack
    build (its time, the part in ``torch.linalg.qr``, and its bytes against
    the reckoned 13,939,200,000), layer-1 and full-forward times for the
@@ -85,7 +94,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    atol 1e-4).
 
 7. Cohort streaming and the privacy stack, at ``FedGATConfig()`` widths.
-   Counts zeroed just before and read just after each counted run (7a-7d).
+   Counts zeroed just before and read just after each counted run (7a-7d;
+   3 gather backwards a local step).
    7a: ``sbm_100k``, fedgat through the kernel engine, K 64, beta 1.0,
    ``client_fraction`` 0.25 (16 per round), ``max_concurrent_clients`` 4
    (4 cohorts), 2 rounds of 3 local steps, fedavg: exactly 98 forward and
@@ -106,9 +116,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    each noised field's std within 1% of sigma times its sensitivity; a
    training round finite with ``pack_epsilon`` equal to the accountant's
    (matrix at sigma 0.05: at 0.5 Matrix FedGAT diverges in both packages);
-   0 launches. 7f: distgat (exact) at ``sbm_100k``, K 256, 16 per round,
-   lanes 4, cohorts against the loop (curves to 1e-6), peak memory and
-   staged mask bytes of both; 0 launches. 7g: ``tiny``, 7a's config at K 4
+   no launch but 2 gather backwards a local step. 7f: distgat (exact) at
+   ``sbm_100k``, K 256, 16 per round, lanes 4, cohorts against the loop
+   (curves to 1e-6), peak memory and staged mask bytes of both; no launch
+   but 4 gather backwards a local step. 7g: ``tiny``, 7a's config at K 4
    (fraction 1.0, lanes 2) with DP noise on the card against the CPU
    (curves to 1e-6, params rtol 1e-3 / atol 1e-4 but the output layer's
    ``a1``), and
@@ -116,7 +127,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 8. The distributed backends (``backend="shard_map"``), at ``FedGATConfig()``
    widths, fedgat through the kernel engine, beta 1.0. Each rank's counts
-   are zeroed just before its run and read just after, in its own process.
+   are zeroed just before its run and read just after, in its own process
+   (3 gather backwards a local step).
    8a: one process on ``sbm_100k``, K 4, fedavg, 2 rounds of 3 local steps:
    one-lane cohorts (mesh ``lanes`` [1]), exactly 26 forward and 24
    backward launches, against the same config through the loop (curves to
@@ -199,7 +211,9 @@ Phases (any failure exits non-zero, and no result line is printed):
 11. The reference API and the paper's experiment drivers: plain PyTorch
    and the Trainer's ``direct``, ``exact`` and ``vector`` engines and GCN,
    so every kernel's count, zeroed just before each part, must read 0 just
-   after it. ``reset_dense_view_count()`` runs before phase 3, and
+   after it, but the gathers' backward, one launch a gradient node the
+   gathers built (``NbrGather.apply`` calls, counted).
+   ``reset_dense_view_count()`` runs before phase 3, and
    ``dense_view_count()`` after phase 10 must read 0: every graph path up
    to ``sbm_1m`` stays on the CSR and neighbour lists. 11a: ``make_sbm(
    "sbm_100k").adj`` raises ``DenseAdjacencyError``; on ``cora_like`` at
@@ -223,16 +237,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    through its own entry point on the card, each in a process of its own
    (started while the module before runs, released by "go"), the counts
    zeroed in that process just before the call and read just after, held
-   exactly as reckoned from the code: ``benchmarks_torch`` ``kernel_bench``
+   exactly as reckoned from the code (and the gathers' backward at one
+   launch a gradient node the gathers built, counted there): ``benchmarks_torch`` ``kernel_bench``
    (one warm-up and ``REPEATS`` timed calls a kernel a row: 28 cheb_attn,
    4 flash_attn, 4 poly_attn at ``--fast``; each row within phase 5's
    tolerance), ``graph_bench`` (repeats x (1 flat + one a bucket) at
    sbm_1k and sbm_10k; no dense view), ``serve_bench`` (one forward a
    client of the ``kernel`` server; ``engine`` equal to the one asked
    for), ``fed_scale_bench``, ``privacy_audit`` and ``privacy_tradeoff``
-   (vmap) at ``--fast`` (no kernel; accuracies in [0, 1]),
+   (vmap) at ``--fast`` (no kernel but the gathers' backward; accuracies
+   in [0, 1]),
    ``large_graph_smoke`` (one flat layer on sbm_100k; no dense view, RSS
-   under its budget), ``telemetry_smoke`` at its 5% gate (no kernel);
+   under its budget), ``telemetry_smoke`` at its 5% gate (no kernel but
+   the gathers' backward);
    ``examples_torch`` ``quickstart``, ``e2e_federated_training`` (20
    rounds), ``engines_and_privacy`` (one forward through the kernel engine;
    every engine against ``direct`` at the serving tolerances, a masked
@@ -243,9 +260,11 @@ Phases (any failure exits non-zero, and no result line is printed):
 The second-to-last line is a JSON object describing each kernel
 (``launches``: cheb_attn's over the serving, training, kernel-API, cohort,
 distributed, bench and example phases, split in ``launches_by_path``, the
-backward's over the training, cohort and distributed phases, the sequence
-kernels' over the kernel-API phase and the benches; ``max_abs_err``:
-kernel against plain version); the last line is ``{"ok": true,
+backward's and the gathers' backward's over the training, cohort,
+distributed, bench and example phases, the sequence kernels' over the
+kernel-API phase and the benches; ``max_abs_err``: kernel against plain
+version; the gathers' backward's times at each of phase 2c's shapes under
+``by_shape``); the last line is ``{"ok": true,
 "device": {...}}``. Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -379,6 +398,80 @@ def cheb_attn_bwd_bound_ms(x, h_nb, mask, coeffs, dout, needs):
     flops = x.numel() * per_score
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+ARXIV_ROWS, ARXIV_B = 169_343, 32      # ogbn-arxiv's nodes, the benchmark's neighbour cap
+GATHER_SHAPES = (("layer 1 scores", 8, 1), ("layer 2 scores", 1, 1), ("layer 2 rows", 1, 40))
+
+
+def nbr_gather_phase(dev):
+    """Phase 2c: the neighbour gathers' backward at the local step's three
+    gathers (``GATHER_SHAPES``: H, F) over seeded padded lists of
+    ogbn-arxiv's size (mean degree 13.77 plus a self-loop, padded slots on
+    node 0, as ``csr_to_padded`` makes them). Each: the kernel against its
+    plain version bit for bit and against PyTorch's index backward; the
+    kernel with its plan and the plan alone (single-call medians), the
+    bound (cotangent and int64 index read once, dx written once), the plain
+    version and the index backward (the library yardstick). Returns the
+    ``kernels`` line's entry, its top-level times at layer 2's rows."""
+    from repro_torch.kernels.nbr_gather import (CHUNK, gather_plan, nbr_gather_backward,
+                                                nbr_gather_backward_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    deg = torch.poisson(torch.full((ARXIV_ROWS,), 13.77, device=dev), generator=gen) + 1
+    deg = deg.clamp(max=ARXIV_B).long()
+    idx = torch.randint(0, ARXIV_ROWS, (ARXIV_ROWS, ARXIV_B), generator=gen, device=dev)
+    idx = torch.where(torch.arange(ARXIV_B, device=dev)[None] < deg[:, None], idx, 0)
+    print(f"2c nbr_gather backward at ogbn-arxiv's size: {idx.numel()} slots, "
+          f"{int((idx == 0).sum())} on node 0", flush=True)
+    rows = {}
+    for label, heads, f in GATHER_SHAPES:
+        grad = torch.randn((heads, ARXIV_ROWS, ARXIV_B, f), generator=gen, device=dev)
+        got = nbr_gather_backward(grad, idx, ARXIV_ROWS)
+        if not torch.equal(got, nbr_gather_backward_plain(grad, idx, ARXIV_ROWS)):
+            fail(f"2c nbr_gather backward ({label}): the kernel and its plain version differ")
+        if not torch.equal(got, nbr_gather_backward(grad, idx, ARXIV_ROWS)):
+            fail(f"2c nbr_gather backward ({label}): two launches give different bits")
+        x = torch.zeros((heads, ARXIV_ROWS, f), device=dev, requires_grad=True)
+        lib = torch.autograd.grad(x[:, idx, :], x, grad)[0]
+        rel = float((got - lib).abs().max() / lib.abs().max())
+        # Against the index backward in float64: the kernel adds float32
+        # values along at most CHUNK additions a level, so each entry lies
+        # within levels * CHUNK * 2**-24 of the sum of its terms' sizes.
+        x64 = x.detach().double().requires_grad_(True)
+        want = torch.autograd.grad(x64[:, idx, :], x64, grad.double())[0]
+        size = torch.autograd.grad(x64[:, idx, :], x64, grad.double().abs())[0]
+        n, levels = idx.numel(), 1
+        while n > CHUNK:
+            n, levels = 2 * -(-n // CHUNK), levels + 1
+        over = float(((got.double() - want).abs() / (levels * CHUNK * F32_ULP * size + 1e-30))
+                     .max())
+        if not over <= 1.0:
+            fail(f"2c nbr_gather backward ({label}): {over:.3f} of the float32 reordering "
+                 "bound from the index backward in float64")
+        del x64, want, size
+        ms = cuda_ms(lambda: nbr_gather_backward(grad, idx, ARXIV_ROWS))
+        plan_ms = cuda_ms(lambda: gather_plan(idx, ARXIV_ROWS))
+        plain_ms = cuda_ms(lambda: nbr_gather_backward_plain(grad, idx, ARXIV_ROWS), reps=3,
+                           warmup=1)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(x[:, idx, :], x, grad), reps=3,
+                             warmup=1)
+        nbytes = 4 * grad.numel() + 8 * idx.numel() + 4 * got.numel()
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        rows[label] = {"heads": heads, "f": f, "ms": ms, "plan_ms": plan_ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms, "library_ms": library_ms,
+                       "rel_err_vs_library": rel, "of_reordering_bound": over}
+        print(f"2c nbr_gather backward {label} (H {heads}, F {f}): kernel {ms:.4f} ms (plan "
+              f"{plan_ms:.4f}, levels {ms - plan_ms:.4f}), bound {bound_ms:.4f} ms (bytes, "
+              f"{nbytes / 1e9:.3f} GB), {100 * bound_ms / ms:.1f}% of it; plain {plain_ms:.2f} ms "
+              f"(equal bits); index backward {library_ms:.2f} ms, {rel:.2e} of max |dx| from "
+              f"the kernel; {over:.3f} of the reordering bound (float64)", flush=True)
+        del grad, got, x, lib
+    torch.cuda.empty_cache()
+    top = rows["layer 2 rows"]
+    return {"max_abs_err": 0.0, "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes", "library_ms": top["library_ms"],
+            "by_shape": rows}
 
 
 def wrapper_host_ms(fn, calls: int = 50) -> float:
@@ -840,8 +933,10 @@ def reckoned_pack_bytes(engine, n, d, b) -> int:
 def kernel_counters():
     from repro_torch.kernels import flash_attn, poly_attn, wkv_chunked
     from repro_torch.kernels.cheb_attn import cheb_attn, cheb_attn_backward
+    from repro_torch.kernels.nbr_gather import nbr_gather_backward
 
-    return (cheb_attn, cheb_attn_backward, flash_attn, poly_attn, wkv_chunked)
+    return (cheb_attn, cheb_attn_backward, flash_attn, nbr_gather_backward, poly_attn,
+            wkv_chunked)
 
 
 def zero_kernel_counts() -> None:
@@ -849,12 +944,75 @@ def zero_kernel_counts() -> None:
         fn.launches = 0
 
 
-def check_no_kernel_launched(label: str) -> None:
+# The neighbour gathers' backward kernels a local step launches, by engine:
+# layer 2's score and row gathers (core/gat.py::gat_layer_nbr) in every
+# engine, plus layer 1's score gather (core/poly_attention.py::edge_scores)
+# in the kernel and direct engines, or both of layer 1's gathers in exact,
+# whose layer 1 is a GAT layer. The pack engines' layer 1 gathers nothing
+# that needs a gradient.
+GATHER_BWD_PER_STEP = {"kernel": 3, "direct": 3, "matrix": 2, "vector": 2, "exact": 4}
+
+
+class counted_steps:
+    """Counts the trainer's local (or centralised) steps inside the block,
+    as calls of ``federated.trainer.grad_of``: ``with counted_steps() as
+    steps: ...; steps.n``."""
+
+    def __enter__(self):
+        from repro_torch.federated import trainer as fed_trainer
+
+        self.n, self._mod, self._grad_of = 0, fed_trainer, fed_trainer.grad_of
+
+        def counted(*args, **kwargs):
+            self.n += 1
+            return self._grad_of(*args, **kwargs)
+
+        fed_trainer.grad_of = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.grad_of = self._grad_of
+        return False
+
+
+class counted_gather_nodes:
+    """Counts the autograd nodes the neighbour gathers build inside the block
+    (``NbrGather.apply``: a gather on the card whose source needs a
+    gradient), each of which must launch the gathers' backward once:
+    ``with counted_gather_nodes() as nodes: ...; nodes.n``."""
+
+    def __enter__(self):
+        from repro_torch.kernels.nbr_gather import NbrGather
+
+        self.n, self._cls, self._own = 0, NbrGather, NbrGather.__dict__.get("apply")
+        apply = NbrGather.apply
+
+        def counted(*args):
+            self.n += 1
+            return apply(*args)
+
+        NbrGather.apply = counted
+        return self
+
+    def __exit__(self, *exc):
+        if self._own is None:
+            del self._cls.apply
+        else:
+            self._cls.apply = self._own
+        return False
+
+
+def check_no_kernel_launched(label: str, gather_bwd: int = 0) -> None:
+    """Every kernel's count 0 (this path is plain PyTorch) but the neighbour
+    gathers' backward, which the path's training steps launch
+    ``gather_bwd`` times in all."""
     got = {fn.__name__: fn.launches for fn in kernel_counters()}
-    print(f"{label}: kernel launches {got} (want all 0: this path is plain PyTorch)",
-          flush=True)
-    if any(got.values()):
-        fail(f"{label} launched a kernel")
+    want = {name: 0 for name in got}
+    want["nbr_gather_backward"] = gather_bwd
+    print(f"{label}: kernel launches {got} (want {want}: plain PyTorch but the training "
+          "steps' gather backwards)", flush=True)
+    if got != want:
+        fail(f"{label}: the kernel launch counts differ from the reckoning")
 
 
 def growth_delta(g, rng, m=64, per_node=2):
@@ -914,7 +1072,8 @@ def check_served(label, results, want, tol, client=None):
 
 def pack_engines_phase(dev, g1m, params1m, want_direct1m, big="sbm_100k", mid="sbm_10k",
                        small="tiny"):
-    """Phase 6: the paper's pack engines (no kernel on this path).
+    """Phase 6: the paper's pack engines (no kernel on this path but the
+    gathers' backward in training).
 
     6a: Matrix FedGAT on ``big`` (sbm_100k) at FedGATConfig() widths: the
     pack build, forwards, federated training and serving with a delta
@@ -994,7 +1153,8 @@ def pack_engines_phase(dev, g1m, params1m, want_direct1m, big="sbm_100k", mid="s
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = run_federated(g, fed_cfg, device=dev)
+    with counted_steps() as steps_6a:
+        res = run_federated(g, fed_cfg, device=dev)
     torch.cuda.synchronize()
     train_wall = time.perf_counter() - t0
     train_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1011,11 +1171,12 @@ def pack_engines_phase(dev, g1m, params1m, want_direct1m, big="sbm_100k", mid="s
                & torch.as_tensor(g.train_mask, device=dev))
     loss_fn = fed_trainer.make_loss_fn(forward, labels)
     tparams = fed_trainer.param_tree(res["params"])
-    ms["train step"] = cuda_ms(lambda: fed_trainer.grad_of(loss_fn, tparams, mask, tr_mask),
-                               reps=3, warmup=1)
-    print(f"train step {big} (device, matrix engine): forward+backward "
-          f"{ms['train step']:.3f} ms", flush=True)
-    print_step_profile(lambda: fed_trainer.grad_of(loss_fn, tparams, mask, tr_mask))
+    with counted_steps() as timed_6a:
+        ms["train step"] = cuda_ms(lambda: fed_trainer.grad_of(loss_fn, tparams, mask, tr_mask),
+                                   reps=3, warmup=1)
+        print(f"train step {big} (device, matrix engine): forward+backward "
+              f"{ms['train step']:.3f} ms", flush=True)
+        print_step_profile(lambda: fed_trainer.grad_of(loss_fn, tparams, mask, tr_mask))
     del forward, loss_fn, tparams, res, pack
     torch.cuda.empty_cache()
 
@@ -1105,7 +1266,9 @@ def pack_engines_phase(dev, g1m, params1m, want_direct1m, big="sbm_100k", mid="s
         fail("phase 6a: a server at refresh_threshold 1e-9 did not refresh every client")
     del server, pm
     torch.cuda.empty_cache()
-    check_no_kernel_launched(f"phase 6a ({big}, matrix)")
+    steps_6a = steps_6a.n + timed_6a.n
+    check_no_kernel_launched(f"phase 6a ({big}, matrix; {steps_6a} local steps, timed ones "
+                             "included)", GATHER_BWD_PER_STEP["matrix"] * steps_6a)
     # Outside the counted run: the kernel engine's times on the same inputs.
     with torch.inference_mode():
         ms["layer1 kernel"] = cuda_ms(lambda: engines["kernel"].apply(
@@ -1218,7 +1381,8 @@ def pack_engines_phase(dev, g1m, params1m, want_direct1m, big="sbm_100k", mid="s
                            aggregator="fedavg", seed=SEED, model=FedGATConfig())
     tpack = FedGAT(tcfg.model, device="cpu").precommunicate(
         fed_trainer.pack_generator(SEED, "cpu"), tiny)
-    on_gpu = run_federated(tiny, tcfg, device=dev, pack=tpack)
+    with counted_steps() as steps_6d:
+        on_gpu = run_federated(tiny, tcfg, device=dev, pack=tpack)
     on_cpu = run_federated(tiny, tcfg, device="cpu", pack=tpack)
     curves = (np.allclose(on_gpu["val_curve"], on_cpu["val_curve"], atol=1e-6)
               and np.allclose(on_gpu["test_curve"], on_cpu["test_curve"], atol=1e-6))
@@ -1231,7 +1395,8 @@ def pack_engines_phase(dev, g1m, params1m, want_direct1m, big="sbm_100k", mid="s
           f"atol={GRAD_ATOL}) {pclose}; val {on_gpu['val_curve']}", flush=True)
     if not (curves and pclose):
         fail(f"{small}: matrix training on the card disagrees with the CPU")
-    check_no_kernel_launched(f"phase 6d ({small}, matrix training)")
+    check_no_kernel_launched(f"phase 6d ({small}, matrix training; {steps_6d.n} local steps on "
+                             "the card)", GATHER_BWD_PER_STEP["matrix"] * steps_6d.n)
 
 
 def params_max_diff(a, b) -> float:
@@ -1278,11 +1443,14 @@ def params_finite(res) -> bool:
 
 
 def counted_run(label, g, cfg, dev, want_fwd, want_bwd):
-    """``run_federated`` on the card with the kernel counts zeroed just
-    before and read just after; fails unless they equal the wants.
-    Returns (result, forward launches, backward launches, peak GiB)."""
+    """``run_federated`` through the kernel engine on the card with the
+    kernel counts zeroed just before and read just after; fails unless they
+    equal the wants, the gathers' backward 3 a local step (one a ``cheb_attn``
+    backward). Returns (result, forward launches, backward launches, gather
+    backward launches, peak GiB)."""
     from repro_torch.federated import run_federated
     from repro_torch.kernels.cheb_attn import cheb_attn, cheb_attn_backward
+    from repro_torch.kernels.nbr_gather import nbr_gather_backward
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1290,21 +1458,24 @@ def counted_run(label, g, cfg, dev, want_fwd, want_bwd):
     res = run_federated(g, cfg, device=dev)
     torch.cuda.synchronize()
     fwd, bwd = cheb_attn.launches, cheb_attn_backward.launches
+    gather = nbr_gather_backward.launches
+    want_gather = GATHER_BWD_PER_STEP["kernel"] * want_bwd
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{label}: {res['seconds'] / max(cfg.rounds, 1):.3f} s per round (trainer clock), "
           f"peak {peak:.2f} GiB; launches forward {fwd} (want {want_fwd}), backward {bwd} "
-          f"(want {want_bwd}); cohort {res['cohort']}; val {res['val_curve']}", flush=True)
-    if (fwd, bwd) != (want_fwd, want_bwd):
+          f"(want {want_bwd}), gather backward {gather} (want {want_gather}); cohort "
+          f"{res['cohort']}; val {res['val_curve']}", flush=True)
+    if (fwd, bwd, gather) != (want_fwd, want_bwd, want_gather):
         fail(f"{label}: the kernel launch counts differ from the cohort plans'")
     if not params_finite(res):
         fail(f"{label}: trained params are not finite")
-    return res, fwd, bwd, peak
+    return res, fwd, bwd, gather, peak
 
 
 def cohort_privacy_phase(dev, big="sbm_100k", mid="sbm_10k", small="tiny"):
     """Phase 7: cohort streaming and the privacy stack (see the module
-    docstring). Returns the ``cheb_attn`` forward and backward launches of
-    its counted runs (7a-7d)."""
+    docstring). Returns the ``cheb_attn`` forward and backward launches and
+    the gather backward's of its counted runs (7a-7d)."""
     from dataclasses import replace
 
     from repro_torch import telemetry
@@ -1328,7 +1499,7 @@ def cohort_privacy_phase(dev, big="sbm_100k", mid="sbm_10k", small="tiny"):
     g = make_sbm(big, seed=SEED)
     print(f"phase 7 {big}: N={g.num_nodes} d={g.feature_dim} B={g.max_degree} "
           f"C={g.num_classes}; built in {time.perf_counter() - t0:.1f}s; {smi}", flush=True)
-    cohort_fwd = cohort_bwd = 0
+    cohort_fwd = cohort_bwd = cohort_gather = 0
 
     def plan_launches(cfg):
         _, chosen = fed_trainer.selection_schedule(cfg)
@@ -1344,10 +1515,11 @@ def cohort_privacy_phase(dev, big="sbm_100k", mid="sbm_10k", small="tiny"):
     n_sel = fed_trainer.num_selected(cfg)
     want_fwd = cfg.rounds * (n_sel * cfg.local_steps + 1)
     want_bwd = cfg.rounds * n_sel * cfg.local_steps
-    res, fwd, bwd, peak = counted_run(
+    res, fwd, bwd, gather, peak = counted_run(
         f"7a {big} sync cohorts (K 64, {n_sel} per round, lanes 4)", g, cfg, dev,
         want_fwd, want_bwd)
     cohort_fwd, cohort_bwd = cohort_fwd + fwd, cohort_bwd + bwd
+    cohort_gather += gather
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     loop = run_federated(g, replace(cfg, max_concurrent_clients=None), device=dev)
@@ -1372,9 +1544,10 @@ def cohort_privacy_phase(dev, big="sbm_100k", mid="sbm_10k", small="tiny"):
     plans, live, want_fwd, want_bwd = plan_launches(bcfg)
     joined0 = telemetry.counter("federated.cohort.joined").value
     dropped0 = telemetry.counter("federated.cohort.dropped").value
-    res, fwd, bwd, _ = counted_run(f"7b {big} buffered, churn (live per round {live})", g,
-                                   bcfg, dev, want_fwd, want_bwd)
+    res, fwd, bwd, gather, _ = counted_run(f"7b {big} buffered, churn (live per round {live})",
+                                           g, bcfg, dev, want_fwd, want_bwd)
     cohort_fwd, cohort_bwd = cohort_fwd + fwd, cohort_bwd + bwd
+    cohort_gather += gather
     joined = (sum(p.joined for p in plans),
               telemetry.counter("federated.cohort.joined").value - joined0)
     dropped = (sum(p.dropped for p in plans),
@@ -1391,10 +1564,11 @@ def cohort_privacy_phase(dev, big="sbm_100k", mid="sbm_10k", small="tiny"):
     priv = PrivacyConfig(clip=1.0, noise_multiplier=0.5, secure_agg=True,
                          secure_agg_mode="pairwise")
     ccfg = replace(cfg, privacy=priv)
-    res, fwd, bwd, _ = counted_run(f"7c {big} DP (clip 1, sigma 0.5) + pairwise masks", g, ccfg,
-                                   dev, cfg.rounds * (n_sel * cfg.local_steps + 1),
-                                   cfg.rounds * n_sel * cfg.local_steps)
+    res, fwd, bwd, gather, _ = counted_run(
+        f"7c {big} DP (clip 1, sigma 0.5) + pairwise masks", g, ccfg, dev,
+        cfg.rounds * (n_sel * cfg.local_steps + 1), cfg.rounds * n_sel * cfg.local_steps)
     cohort_fwd, cohort_bwd = cohort_fwd + fwd, cohort_bwd + bwd
+    cohort_gather += gather
     again = run_federated(g, ccfg, device=dev)
     same = (res["val_curve"] == again["val_curve"] and res["test_curve"] == again["test_curve"])
     eps = compute_epsilon(priv.noise_multiplier, cfg.rounds, n_sel / cfg.num_clients,
@@ -1419,7 +1593,7 @@ def cohort_privacy_phase(dev, big="sbm_100k", mid="sbm_10k", small="tiny"):
     telemetry.reset()
     telemetry.enable()
     try:
-        res, fwd, bwd, _ = counted_run(
+        res, fwd, bwd, gather, _ = counted_run(
             f"7d {big} protocol, buffered, drop churn 0.25 (K 16, lanes 4, live {live})",
             g, dcfg, dev, want_fwd, want_bwd)
         host = {}
@@ -1430,6 +1604,7 @@ def cohort_privacy_phase(dev, big="sbm_100k", mid="sbm_10k", small="tiny"):
         telemetry.disable()
         telemetry.reset()
     cohort_fwd, cohort_bwd = cohort_fwd + fwd, cohort_bwd + bwd
+    cohort_gather += gather
     recovered = telemetry.counter("privacy.secure_agg.recovered_seeds").value - recovered0
     failures = telemetry.counter("privacy.secure_agg.recovery_failures").value - failures0
     free = run_federated(g, replace(dcfg, privacy=PrivacyConfig()), device=dev)
@@ -1493,7 +1668,8 @@ def cohort_privacy_phase(dev, big="sbm_100k", mid="sbm_10k", small="tiny"):
                                seed=SEED, model=mcfg,
                                privacy=PrivacyConfig(pack_noise_multiplier=train_sigma))
         torch.cuda.reset_peak_memory_stats()
-        res = run_federated(gp, tcfg, device=dev)
+        with counted_steps() as steps_7e:
+            res = run_federated(gp, tcfg, device=dev)
         torch.cuda.synchronize()
         want_eps = compute_epsilon(train_sigma, pack_release_steps(), 1.0, tcfg.privacy.delta)
         print(f"7e {engine} {name} training round at pack sigma {train_sigma}: "
@@ -1502,7 +1678,8 @@ def cohort_privacy_phase(dev, big="sbm_100k", mid="sbm_10k", small="tiny"):
               f" (accountant {want_eps!r}); val {res['val_curve']}", flush=True)
         if not params_finite(res) or res["privacy"]["pack_epsilon"] != want_eps:
             fail(f"7e {engine}: the noised-pack round is not finite or not accounted")
-        check_no_kernel_launched(f"7e ({engine}, {name})")
+        check_no_kernel_launched(f"7e ({engine}, {name}; {steps_7e.n} local steps)",
+                                 GATHER_BWD_PER_STEP[engine] * steps_7e.n)
         del res, gp
         torch.cuda.empty_cache()
 
@@ -1515,10 +1692,13 @@ def cohort_privacy_phase(dev, big="sbm_100k", mid="sbm_10k", small="tiny"):
     zero_kernel_counts()
     peaks = {}
     runs = {}
+    steps_7f = 0
     for label, c in (("cohort", fcfg), ("loop", replace(fcfg, max_concurrent_clients=None))):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        runs[label] = run_federated(g, c, device=dev)
+        with counted_steps() as steps:
+            runs[label] = run_federated(g, c, device=dev)
+        steps_7f += steps.n
         torch.cuda.synchronize()
         peaks[label] = torch.cuda.max_memory_allocated() / 2**30
     n, b, K = g.num_nodes, g.max_degree, fcfg.num_clients
@@ -1532,7 +1712,8 @@ def cohort_privacy_phase(dev, big="sbm_100k", mid="sbm_10k", small="tiny"):
           f"(atol 1e-6) {curves}; {smi}", flush=True)
     if not curves:
         fail("7f: distgat cohorts disagree with the loop")
-    check_no_kernel_launched(f"7f (distgat exact, {big})")
+    check_no_kernel_launched(f"7f (distgat exact, {big}; {steps_7f} local steps)",
+                             GATHER_BWD_PER_STEP["exact"] * steps_7f)
     del runs, g
     torch.cuda.empty_cache()
 
@@ -1558,7 +1739,7 @@ def cohort_privacy_phase(dev, big="sbm_100k", mid="sbm_10k", small="tiny"):
           f"{mia_cpu['auc']!r})", flush=True)
     if not (curves and pclose) or mia_gpu["advantage"] != mia_cpu["advantage"]:
         fail(f"7g: {small} DP cohort training or the MIA audit differs between card and CPU")
-    return cohort_fwd, cohort_bwd
+    return cohort_fwd, cohort_bwd, cohort_gather
 
 
 # Phase 8's worker: one rank of a shard_map run on the card. It zeroes its
@@ -1577,6 +1758,7 @@ try:
     from repro_torch.federated import FederatedConfig, run_federated
     from repro_torch.graphs import make_sbm
     from repro_torch.kernels.cheb_attn import cheb_attn, cheb_attn_backward
+    from repro_torch.kernels.nbr_gather import nbr_gather_backward
     from repro_torch.privacy import PrivacyConfig
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1587,18 +1769,20 @@ try:
     g = make_sbm(spec["graph"], seed=cfg.seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cheb_attn.launches = cheb_attn_backward.launches = 0
+    cheb_attn.launches = cheb_attn_backward.launches = nbr_gather_backward.launches = 0
     t0 = time.perf_counter()
     res = run_federated(g, cfg, backend="shard_map")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd = cheb_attn.launches, cheb_attn_backward.launches
+    gather = nbr_gather_backward.launches
     named = [(n, p.detach().cpu()) for n, p in res["params"].named_parameters()]
     digest = hashlib.sha256()
     for n, p in named:
         digest.update(n.encode() + p.numpy().tobytes())
     rec = {"rank": rank, "processes": nproc, "collectives": collectives,
            "device": f"cuda:{torch.cuda.current_device()}", "forward": fwd, "backward": bwd,
+           "gather_backward": gather,
            "params_sha256": digest.hexdigest(), "s_per_round": res["seconds"] / cfg.rounds,
            "run_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "val_curve": res["val_curve"], "test_curve": res["test_curve"],
@@ -1612,9 +1796,10 @@ finally:
 
 
 def rank_launches(cfg, processes):
-    """Each rank's exact (forward, backward) cheb_attn launches in a
-    shard_map run: a selected client it hosts runs ``local_steps`` of each
-    a round, and rank 0 one evaluation forward a round."""
+    """Each rank's exact (forward, backward) cheb_attn and gather backward
+    launches in a shard_map run: a selected client it hosts runs
+    ``local_steps`` of each a round, and rank 0 one evaluation forward a
+    round."""
     from repro_torch.federated import trainer as fed_trainer
 
     sel, _ = fed_trainer.selection_schedule(cfg)
@@ -1622,7 +1807,8 @@ def rank_launches(cfg, processes):
     want = []
     for r in range(processes):
         steps = int(sel[:, r * per:(r + 1) * per].sum()) * cfg.local_steps
-        want.append((steps + (cfg.rounds if r == 0 else 0), steps))
+        want.append((steps + (cfg.rounds if r == 0 else 0), steps,
+                     GATHER_BWD_PER_STEP["kernel"] * steps))
     return want
 
 
@@ -1651,13 +1837,14 @@ def run_ranks(label, graph, cfg, processes=2):
             fail(f"{label}: a worker exited {code}")
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(processes)]
     want = rank_launches(cfg, processes)
-    got = [(r["forward"], r["backward"]) for r in ranks]
+    got = [(r["forward"], r["backward"], r["gather_backward"]) for r in ranks]
     rule = mp.collectives_for("cuda", processes)
     print(f"{label}: {processes} ranks, collectives {[r['collectives'] for r in ranks]} (rule for "
           f"{torch.cuda.device_count()} card(s): {rule}), devices {[r['device'] for r in ranks]}; "
           f"s per round {[round(r['s_per_round'], 3) for r in ranks]} (trainer clock), run "
           f"{[round(r['run_s'], 2) for r in ranks]} s, wall {wall:.2f} s with start-up; peak "
-          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; launches (forward, backward) per rank "
+          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; launches (forward, backward, gather "
+          f"backward) per rank "
           f"{got} (want {want}); params sha256 {[r['params_sha256'][:16] for r in ranks]}",
           flush=True)
     if got != want:
@@ -1690,8 +1877,8 @@ def against(label, got, want_curves, want_params, curve_atol=1e-6):
 def distributed_phase(dev, phase4, big="sbm_1m", small="sbm_100k"):
     """Phase 8: the shard_map backend (see the module docstring).
     ``phase4`` holds phase 4's config, curves and final params on the
-    host. Returns the ``cheb_attn`` forward and backward launches of its
-    counted runs, over every rank."""
+    host. Returns the ``cheb_attn`` forward and backward launches and the
+    gather backward's of its counted runs, over every rank."""
     from dataclasses import replace
 
     from repro_torch.core import FedGATConfig
@@ -1709,7 +1896,7 @@ def distributed_phase(dev, phase4, big="sbm_1m", small="sbm_100k"):
     want_fwd = cfg.rounds * (cfg.num_clients * cfg.local_steps + 1)
     want_bwd = cfg.rounds * cfg.num_clients * cfg.local_steps
     t0 = time.perf_counter()
-    res, fwd, bwd, _ = counted_run(f"8a {small} shard_map, one process (K 4)", g,
+    res, fwd, bwd, gather, _ = counted_run(f"8a {small} shard_map, one process (K 4)", g,
                                    replace(cfg, backend="shard_map"), dev, want_fwd, want_bwd)
     print(f"8a: wall {time.perf_counter() - t0:.2f} s with set-up; mesh {res['mesh']}", flush=True)
     if res["mesh"] != {"axis_names": ["lanes"], "axis_sizes": [1], "num_devices": 1,
@@ -1718,7 +1905,7 @@ def distributed_phase(dev, phase4, big="sbm_1m", small="sbm_100k"):
     loop = run_federated(g, cfg, device=dev)
     print(f"8a loop: {loop['seconds'] / cfg.rounds:.3f} s per round (trainer clock)", flush=True)
     against("8a against the loop", res, (loop["val_curve"], loop["test_curve"]), loop["params"])
-    dist_fwd, dist_bwd = fwd, bwd
+    dist_fwd, dist_bwd, dist_gather = fwd, bwd, gather
     del res, loop
 
     # -- 8b: two processes on the card, phase 4's config --------------------
@@ -1726,6 +1913,7 @@ def distributed_phase(dev, phase4, big="sbm_1m", small="sbm_100k"):
     against("8b rank 0 against phase 4", ranks[0], phase4["curves"], phase4["params"])
     dist_fwd += sum(r["forward"] for r in ranks)
     dist_bwd += sum(r["backward"] for r in ranks)
+    dist_gather += sum(r["gather_backward"] for r in ranks)
 
     # -- 8c: two processes, DP with pairwise masks --------------------------
     pcfg = replace(cfg, num_clients=8, client_fraction=0.5,
@@ -1745,7 +1933,8 @@ def distributed_phase(dev, phase4, big="sbm_1m", small="sbm_100k"):
         fail("8c: the private distributed run disagrees with the loop")
     dist_fwd += sum(r["forward"] for r in ranks)
     dist_bwd += sum(r["backward"] for r in ranks)
-    return dist_fwd, dist_bwd
+    dist_gather += sum(r["gather_backward"] for r in ranks)
+    return dist_fwd, dist_bwd, dist_gather
 
 
 # -- phase 9: the language-model substrate ----------------------------------
@@ -2625,12 +2814,15 @@ def paper_phase(dev, smi):
     with pool() as workers:                 # the drivers are host-bound: run side by side
         runs = {name: workers.submit(paper_driver, name, str(dev)) for name in names}
         for name, mod in benches:
-            rows, n_steps, seconds[name], launches, derived = runs[name].result()
+            rows, n_steps, nodes, seconds[name], launches, derived = runs[name].result()
+            want = {k: 0 for k in launches}
+            want["nbr_gather_backward"] = nodes
             print(f"11b {name}: {len(rows)} rows, {n_steps} local steps, {seconds[name]:.2f} s "
                   f"(in a worker, beside {min(POOL_WORKERS, len(names)) - 1} others); "
-                  f"{derived}; launches {launches} (want all 0); {smi}", flush=True)
-            if any(launches.values()):
-                fail(f"11b {name} launched a kernel")
+                  f"{derived}; launches {launches} (want {want}: plain PyTorch but one gather "
+                  f"backward a gradient node of the gathers); {smi}", flush=True)
+            if launches != want:
+                fail(f"11b {name}: the kernel launch counts differ from the reckoning")
             total_steps += n_steps
             accs = [r[k] for r in rows for k in ("acc", "std") if k in r]
             if not all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs):
@@ -2651,33 +2843,23 @@ def paper_phase(dev, smi):
 
 def paper_driver(name, device):
     """One paper driver's ``fast`` sweep on ``device``, in a worker process:
-    its rows, local steps (calls of the trainer's ``grad_of``), seconds,
-    kernel launches (zeroed just before, read just after) and derived line."""
+    its rows, local steps (calls of the trainer's ``grad_of``), the gathers'
+    autograd nodes, seconds, kernel launches (zeroed just before, read just
+    after) and derived line."""
     import importlib
 
     from repro_torch._device import sync
-    from repro_torch.federated import trainer as fed_trainer
 
     mod = importlib.import_module(f"benchmarks_torch.{name}")
     dev = torch.device(device)
-    steps = {"n": 0}
-    grad_of = fed_trainer.grad_of
-
-    def counted_grad_of(*args, **kwargs):     # one call a local (or centralised) step
-        steps["n"] += 1
-        return grad_of(*args, **kwargs)
-
-    fed_trainer.grad_of = counted_grad_of
     zero_kernel_counts()
-    try:
+    with counted_steps() as steps, counted_gather_nodes() as nodes:
         t0 = time.perf_counter()
         rows = mod.run(fast=True, device=dev)
         sync(dev)
         seconds = time.perf_counter() - t0
-    finally:
-        fed_trainer.grad_of = grad_of
     launches = {fn.__name__: fn.launches for fn in kernel_counters()}
-    return rows, steps["n"], seconds, launches, mod.derived(rows)
+    return rows, steps.n, nodes.n, seconds, launches, mod.derived(rows)
 
 
 # -- phase 12: the system benchmarks, the two smokes and the examples ---------
@@ -2697,6 +2879,7 @@ import repro_torch.federated, repro_torch.models, repro_torch.privacy.attacks, r
 from repro_torch.graphs import dense_view_count
 from repro_torch.kernels import flash_attn, poly_attn, wkv_chunked
 from repro_torch.kernels.cheb_attn import cheb_attn, cheb_attn_backward
+from repro_torch.kernels.nbr_gather import NbrGather, nbr_gather_backward
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 spec = json.loads(sys.argv[2])
@@ -2716,9 +2899,15 @@ for name in spec.get("record", []):
                            if isinstance(out, dict) else out)
         return out
     setattr(mod, name, recorder)
-counters = (cheb_attn, cheb_attn_backward, flash_attn, poly_attn, wkv_chunked)
+counters = (cheb_attn, cheb_attn_backward, flash_attn, nbr_gather_backward, poly_attn,
+            wkv_chunked)
 for c in counters:
     c.launches = 0
+gather_nodes = [0]                # the gathers' autograd nodes: one backward each
+def counted_apply(*args, _apply=NbrGather.apply):
+    gather_nodes[0] += 1
+    return _apply(*args)
+NbrGather.apply = counted_apply
 t0 = time.perf_counter()
 if "argv" in spec:
     rows, derived = None, None
@@ -2731,7 +2920,8 @@ seconds = time.perf_counter() - t0
 launches = {c.__name__: c.launches for c in counters}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro", "benchmarks"))
 print("RESULT " + json.dumps({"rc": rc, "seconds": seconds, "startup": startup,
-                              "launches": launches, "rows": rows, "derived": derived,
+                              "launches": launches, "gather_nodes": gather_nodes[0],
+                              "rows": rows, "derived": derived,
                               "recorded": recorded, "loaded": loaded,
                               "dense_views": dense_view_count()}), flush=True)
 """
@@ -2769,8 +2959,9 @@ def finish_module(label, proc, want, smi):
         print(err[-4000:], file=sys.stderr)
         fail(f"12 {label}: the module's process exited {proc.returncode}")
     res = json.loads(results[-1][len("RESULT "):])
-    want_all = {"cheb_attn": 0, "cheb_attn_backward": 0, "flash_attn": 0, "poly_attn": 0,
-                "wkv_chunked": 0, **want}
+    want_all = {"cheb_attn": 0, "cheb_attn_backward": 0, "flash_attn": 0,
+                "nbr_gather_backward": res["gather_nodes"], "poly_attn": 0, "wkv_chunked": 0,
+                **want}
     print(f"12 {label}: {res['seconds']:.2f} s in its call ({wall:.2f} s from go to exit; "
           f"its process's start-up {res['startup']:.2f} s); launches "
           f"{res['launches']} (want {want_all}); derived: {res['derived']}; {smi}", flush=True)
@@ -2949,6 +3140,7 @@ def main() -> None:
     from repro_torch.federated import trainer as fed_trainer
     from repro_torch.kernels import _build
     from repro_torch.kernels.cheb_attn import cheb_attn, cheb_attn_backward
+    from repro_torch.kernels.nbr_gather import nbr_gather_backward
     from repro_torch.kernels.ref import cheb_attn_bwd_ref, cheb_attn_ref
     from repro_torch.serving import GraphInferenceServer, MicroBatcher, Query
 
@@ -3117,6 +3309,9 @@ def main() -> None:
     del x, h_nb, mask_f, dout
     torch.cuda.empty_cache()
 
+    # -- phase 2c: the neighbour gathers' backward --------------------------
+    gather_entry = nbr_gather_phase(dev)
+
     # -- phase 3: serving through the kernel engine ------------------------
     reset_dense_view_count()
     server = GraphInferenceServer(params, cfg, g, method="fedgat", num_clients=4,
@@ -3166,23 +3361,25 @@ def main() -> None:
     n_sel = fed_trainer.num_selected(fed_cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cheb_attn.launches = 0
-    cheb_attn_backward.launches = 0
+    zero_kernel_counts()
     t0 = time.perf_counter()
     res = run_federated(g, fed_cfg, device=dev)
     torch.cuda.synchronize()
     train_wall = time.perf_counter() - t0
     train_fwd, train_bwd = cheb_attn.launches, cheb_attn_backward.launches
+    train_gather = nbr_gather_backward.launches
     want_fwd = fed_cfg.rounds * (n_sel * fed_cfg.local_steps + 1)
     want_bwd = fed_cfg.rounds * n_sel * fed_cfg.local_steps
+    want_gather = GATHER_BWD_PER_STEP["kernel"] * want_bwd
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"train sbm_1m: fedgat kernel engine, {fed_cfg.num_clients} clients "
           f"({n_sel} per round), {fed_cfg.rounds} rounds x {fed_cfg.local_steps} local steps: "
           f"{res['seconds'] / fed_cfg.rounds:.3f} s per round (trainer clock), wall "
           f"{train_wall:.2f} s with set-up; launches forward {train_fwd} (want {want_fwd}), "
-          f"backward {train_bwd} (want {want_bwd}); peak {peak_gib:.2f} GiB; "
+          f"backward {train_bwd} (want {want_bwd}), gather backward {train_gather} (want "
+          f"{want_gather}); peak {peak_gib:.2f} GiB; "
           f"val {res['val_curve']} test {res['test_curve']}", flush=True)
-    if (train_fwd, train_bwd) != (want_fwd, want_bwd):
+    if (train_fwd, train_bwd, train_gather) != (want_fwd, want_bwd, want_gather):
         fail("the training path's kernel launch counts differ from the schedule's")
     if not all(bool(torch.isfinite(p).all()) for p in res["params"].parameters()):
         fail("trained params are not finite")
@@ -3259,7 +3456,7 @@ def main() -> None:
     # -- phase 10a's traces start on the host, beside phases 6-9 -----------
     dryrun = start_dryrun()
 
-    # -- phase 6: the pack engines (no kernel on this path) ----------------
+    # -- phase 6: the pack engines (the gathers' backward alone) -----------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     pack_engines_phase(dev, g, params, want_direct)
@@ -3269,13 +3466,13 @@ def main() -> None:
     del g, params, h, nbr_idx, nbr_mask, server, batcher
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cohort_fwd, cohort_bwd = cohort_privacy_phase(dev)
+    cohort_fwd, cohort_bwd, cohort_gather = cohort_privacy_phase(dev)
     print(f"cohort and privacy phase: {time.perf_counter() - t0:.1f}s")
 
     # -- phase 8: the distributed backends ----------------------------------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    dist_fwd, dist_bwd = distributed_phase(dev, phase4)
+    dist_fwd, dist_bwd, dist_gather = distributed_phase(dev, phase4)
     print(f"distributed phase: {time.perf_counter() - t0:.1f}s")
 
     # -- phase 9: the language-model substrate (no kernel on this path) ----
@@ -3294,7 +3491,7 @@ def main() -> None:
     if views:
         fail("a path of phases 3-10 materialised a dense adjacency")
 
-    # -- phase 11: the reference API and the paper drivers (no kernel) -----
+    # -- phase 11: the reference API and the paper drivers -----------------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     paper_phase(dev, nvidia_smi())
@@ -3346,6 +3543,19 @@ def main() -> None:
         "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by,
         "library_ms": None,
+    }, {
+        "name": "nbr_gather_backward",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/nbr_gather.cu",
+        "replaces": None,
+        "launches": (train_gather + cohort_gather + dist_gather
+                     + bench_launches.get("nbr_gather_backward", 0)
+                     + example_launches.get("nbr_gather_backward", 0)),
+        "launches_by_path": {"train": train_gather, "cohort": cohort_gather,
+                             "distributed": dist_gather,
+                             "benches": bench_launches.get("nbr_gather_backward", 0),
+                             "examples": example_launches.get("nbr_gather_backward", 0)},
+        **gather_entry,
     }] + [{
         "name": name,
         "route": "cuda",

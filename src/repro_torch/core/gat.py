@@ -19,6 +19,8 @@ from typing import Mapping, Optional, Sequence
 import torch
 from torch import nn
 
+from repro_torch.kernels.nbr_gather import nbr_gather
+
 LEAKY_SLOPE = 0.2
 
 
@@ -90,11 +92,11 @@ def gat_layer_nbr(
     z = torch.einsum("nd,hdo->hno", h, params["W"])          # (H, N, d_out)
     s1 = torch.einsum("hno,ho->hn", z, params["a1"])         # (H, N)
     s2 = torch.einsum("hno,ho->hn", z, params["a2"])         # (H, N)
-    logits = leaky_relu(s1[:, :, None] + s2[:, nbr_idx])     # (H, N, B)
+    logits = leaky_relu(s1[:, :, None] + nbr_gather(s2[..., None], nbr_idx)[..., 0])  # (H, N, B)
     logits = torch.where(nbr_mask[None], logits, -torch.inf)
     alpha = torch.softmax(logits, dim=-1)
     alpha = torch.where(nbr_mask[None], alpha, 0.0)          # isolated rows: 0
-    out = torch.einsum("hnb,hnbo->hno", alpha, z[:, nbr_idx, :])
+    out = torch.einsum("hnb,hnbo->hno", alpha, nbr_gather(z, nbr_idx))
     if concat:
         return out.permute(1, 0, 2).reshape(h.shape[0], -1)
     return out.mean(dim=0)

@@ -13,6 +13,7 @@ from typing import Mapping, Tuple
 import torch
 
 from repro_torch.core.chebyshev import eval_chebyshev, eval_power_series
+from repro_torch.kernels.nbr_gather import nbr_gather
 
 Params = Mapping[str, torch.Tensor]
 
@@ -30,7 +31,7 @@ def edge_scores(
     """x_ij = b1.h_i + b2.h_j over padded neighbour lists. -> (H, N, B)."""
     s1 = torch.einsum("nd,hd->hn", h, b1)
     s2 = torch.einsum("nd,hd->hn", h, b2)
-    return s1[:, :, None] + s2[:, nbr_idx]
+    return s1[:, :, None] + nbr_gather(s2[..., None], nbr_idx)[..., 0]
 
 
 def eval_series(

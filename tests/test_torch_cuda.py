@@ -21,6 +21,12 @@ DP, pairwise masks or the protocol against the same run on the CPU. The
 shard_map backend on the card: one process (one-lane cohorts) against the
 loop with exact launch counts, two ranks sharing card 0 over gloo, and
 two ranks with a card each over NCCL (skipped with fewer than two cards).
+The neighbour gathers' backward kernel against its plain version (the same
+bits: it adds in the kernel's order) and against PyTorch's index backward in
+float64 (within the float32 error of the kernel's order of additions), at
+ogbn-arxiv's padded shape with a hub of 10**5 slots, at chunk edges, with
+B 1, empty segments and a misaligned cotangent; its determinism, its
+launches per local step and its profiler node.
 The dense GAT/GCN forms against the neighbour-list forms and
 ``moments_direct`` against the CPU on ``cora_like``, the theorem drivers
 of ``benchmarks_torch`` on the card against the CPU, and the rows of
@@ -48,6 +54,12 @@ from repro_torch.graphs import make_cora_like
 from repro_torch.kernels import flash_attn, ops, poly_attn, wkv_chunked
 from repro_torch.kernels.cheb_attn import cheb_attn, cheb_attn_backward
 from repro_torch.kernels.flash_attn import flash_attn_plain
+from repro_torch.kernels.nbr_gather import (
+    CHUNK,
+    nbr_gather,
+    nbr_gather_backward,
+    nbr_gather_backward_plain,
+)
 from repro_torch.kernels.poly_attn import poly_attn_plain
 from repro_torch.kernels.ref import cheb_attn_bwd_ref, cheb_attn_ref, wkv_ref
 from repro_torch.kernels.wkv_chunk import wkv_chunked_plain
@@ -1210,3 +1222,180 @@ def test_cuda_kernel_bench_rows_hold_the_tolerances_and_launch_counts(tmp_path, 
         assert 0.0 <= row["err_over_tol"] <= 1.0, row
         assert all(v > 0 for k, v in row.items() if k.startswith("us_")), row
     assert (tmp_path / "BENCH_kernel.json").exists()
+
+
+# ---- nbr_gather: the neighbour gathers' backward kernel ----
+
+ARXIV_ROWS, ARXIV_B = 169343, 32
+
+
+def _padded_lists(rows, b=ARXIV_B, seed=0, hub=7, hub_slots=10 ** 5):
+    """Padded neighbour lists as csr_to_padded makes them at ogbn-arxiv's mean
+    degree (13.77 plus a self-loop): a row's slots past its degree point at
+    node 0, about 17 of 32. ``hub`` takes ``hub_slots`` of the other slots
+    (at most half of them)."""
+    rng = np.random.default_rng(seed)
+    deg = np.clip(rng.poisson(13.77, rows) + 1, 1, b)
+    idx = rng.integers(0, rows, (rows, b))
+    real = np.nonzero((np.arange(b)[None, :] < deg[:, None]).reshape(-1))[0]
+    take = rng.choice(real, min(hub_slots, len(real) // 2), replace=False)
+    idx.reshape(-1)[take] = hub
+    idx[np.arange(b)[None, :] >= deg[:, None]] = 0
+    return torch.from_numpy(idx).cuda()
+
+
+def _levels(slots):
+    levels = 1
+    while slots > CHUNK:
+        slots, levels = 2 * -(-slots // CHUNK), levels + 1
+    return levels
+
+
+def _assert_within_reordering(got, grad, idx, nodes):
+    """``got`` against PyTorch's index backward in float64. The kernel adds
+    float32 values along a path of at most CHUNK additions a level, so each
+    entry is within levels * CHUNK * 2**-24 of the sum of its terms' sizes."""
+    def index_backward(g):
+        x = torch.zeros((g.shape[0], nodes, g.shape[-1]), dtype=torch.float64,
+                        device=g.device, requires_grad=True)
+        return torch.autograd.grad(x[:, idx, :], x, g)[0]
+
+    want = index_backward(grad.double())
+    size = index_backward(grad.double().abs())
+    bound = _levels(idx.numel()) * CHUNK * 2.0 ** -24 * size + 1e-30
+    err = (got.double() - want).abs()
+    assert (err <= bound).all(), float((err / bound).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [ARXIV_ROWS, 2000], ids=["arxiv", "small"])
+@pytest.mark.parametrize("heads,f", [(8, 1), (1, 1), (1, 40)],
+                         ids=["scores-8-heads", "scores-1-head", "rows-40"])
+def test_cuda_nbr_gather_backward_matches_plain_version_and_index_backward(rows, heads, f):
+    """Every padded slot on node 0 (about 2.9M at arxiv's size) and node 7
+    with 10**5 slots (1,000 at the small size): runs across many chunks."""
+    _need_card()
+    idx = _padded_lists(rows, hub_slots=10 ** 5 if rows == ARXIV_ROWS else 1000)
+    grad = _randn((heads, rows, ARXIV_B, f), 1)
+    before = nbr_gather_backward.launches
+    got = nbr_gather_backward(grad, idx, rows)
+    torch.cuda.synchronize()
+    assert nbr_gather_backward.launches == before + 1
+    assert got.shape == (heads, rows, f) and got.dtype == torch.float32
+    assert torch.equal(got, nbr_gather_backward_plain(grad, idx, rows))
+    _assert_within_reordering(got, grad, idx, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,b,nodes,heads,f", [
+    (CHUNK - 1, 1, 40, 1, 4), (CHUNK, 1, 40, 2, 1), (CHUNK + 1, 1, 40, 3, 1),
+    (2 * CHUNK, 1, 7, 1, 40), (3 * CHUNK + 1, 1, 500, 2, 4), (50, 3, 5000, 1, 8),
+    (CHUNK * CHUNK + 5, 1, 3, 2, 12),
+], ids=["chunk-less-one", "one-chunk", "chunk-plus-one", "two-chunks-few-nodes", "B-1",
+        "empty-segments", "three-levels"])
+def test_cuda_nbr_gather_backward_at_chunk_edges(rows, b, nodes, heads, f):
+    _need_card()
+    rng = np.random.default_rng(rows)
+    idx = torch.from_numpy(rng.integers(0, nodes, (rows, b))).cuda()
+    grad = _randn((heads, rows, b, f), 2)
+    got = nbr_gather_backward(grad, idx, nodes)
+    assert torch.equal(got, nbr_gather_backward_plain(grad, idx, nodes))
+    _assert_within_reordering(got, grad, idx, nodes)
+    assert (got[:, torch.bincount(idx.view(-1), minlength=nodes) == 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_nbr_gather_backward_takes_a_misaligned_cotangent_by_words():
+    """A cotangent that is not 16-byte aligned takes the one-float path."""
+    _need_card()
+    idx = _padded_lists(3000, hub_slots=1000)
+    base = _randn((40 * 3000 * ARXIV_B + 1,), 3)
+    grad = base[1:].view(1, 3000, ARXIV_B, 40)
+    assert grad.data_ptr() % 16 != 0
+    got = nbr_gather_backward(grad, idx, 3000)
+    assert torch.equal(got, nbr_gather_backward_plain(grad, idx, 3000))
+    assert torch.equal(got, nbr_gather_backward(grad.clone(), idx, 3000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,f", [(8, 1), (1, 40)], ids=["scores-8-heads", "rows-40"])
+def test_cuda_nbr_gather_backward_gives_the_same_bits_twice(heads, f):
+    _need_card()
+    idx = _padded_lists(ARXIV_ROWS)
+    grad = _randn((heads, ARXIV_ROWS, ARXIV_B, f), 4)
+    a = nbr_gather_backward(grad, idx, ARXIV_ROWS)
+    b = nbr_gather_backward(grad, idx, ARXIV_ROWS)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_nbr_gather_gradient_through_autograd():
+    """The Function's forward is plain indexing, its backward the kernel."""
+    _need_card()
+    idx = _padded_lists(2000, hub_slots=500)
+    x = _randn((8, 2000, 1), 5).requires_grad_(True)
+    y = nbr_gather(x, idx)
+    assert torch.equal(y, x.detach()[:, idx, :])
+    grad = _randn(tuple(y.shape), 6)
+    before = nbr_gather_backward.launches
+    got, = torch.autograd.grad(y, x, grad)
+    assert nbr_gather_backward.launches == before + 1
+    assert torch.equal(got, nbr_gather_backward_plain(grad, idx, 2000))
+    with torch.no_grad():
+        assert nbr_gather(x, idx).grad_fn is None
+    assert nbr_gather_backward.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine,per_step", [
+    ("kernel", 3), ("direct", 3), ("vector", 2), ("matrix", 2), ("exact", 4)])
+def test_cuda_local_step_launches_the_gather_backward_per_gather(engine, per_step):
+    """Layer 2's score and row gathers (every engine), layer 1's score
+    gather (the kernel and direct engines) or both of layer 1's (exact,
+    whose layer 1 is a GAT layer); evaluate runs them forward only."""
+    _need_card()
+    g = make_cora_like("tiny", seed=0)
+    cfg = FederatedConfig(num_clients=2, rounds=2, local_steps=2,
+                          model=FedGATConfig(engine=engine, degree=8))
+    before = nbr_gather_backward.launches
+    run_federated(g, cfg, device="cuda")
+    steps = 2 * 2 * 2
+    assert nbr_gather_backward.launches - before == per_step * steps
+
+
+@pytest.mark.cuda
+def test_cuda_nbr_gather_refuses_what_it_cannot_take():
+    _need_card()
+    idx = _padded_lists(100, hub_slots=10)
+    x = _randn((2, 100, 3), 7)
+    with pytest.raises(TypeError, match="float32"):
+        nbr_gather(x.double().requires_grad_(True), idx)
+    with pytest.raises(ValueError, match="int64"):
+        nbr_gather(x.clone().requires_grad_(True), idx.cpu())
+    with pytest.raises(ValueError, match="int64"):
+        nbr_gather(x.clone().requires_grad_(True), idx.int())
+    grad = _randn((2, 100, ARXIV_B, 3), 8)
+    with pytest.raises(ValueError, match="shape"):
+        nbr_gather_backward(grad[:, :50], idx, 100)
+    with pytest.raises(TypeError, match="float32"):
+        nbr_gather_backward(grad.double(), idx, 100)
+
+
+@pytest.mark.cuda
+def test_cuda_nbr_gather_bwd_ms_reads_the_backward_node():
+    """The benchmark's reader finds the Function's backward node in a
+    profiled call, and PyTorch's index backward is gone from it."""
+    _need_card()
+    from types import SimpleNamespace
+
+    from bench.harness import spec
+    from bench.harness.profiling import profile_call
+
+    idx = _padded_lists(5000, hub_slots=1000)
+    x = _randn((1, 5000, 40), 9).requires_grad_(True)
+    _, prof = profile_call(lambda: torch.autograd.grad(nbr_gather(x, idx).sum(), x),
+                           lambda: [], device="cuda")
+    ms = spec.metric_reader("nbr_gather_bwd_ms")(SimpleNamespace(profile=prof, profile_steps=1))
+    assert ms is not None and ms > 0
+    assert not any("indexing_backward" in name for name, _ in prof.kernels)
+    assert any("nbr_gather_bwd_level" in name for name, _ in prof.kernels)

@@ -35,6 +35,7 @@ from repro_torch.kernels.cheb_attn import (
 from repro_torch.kernels.ref import cheb_attn_bwd_ref, cheb_attn_ref
 
 cheb_mod = importlib.import_module("repro_torch.kernels.cheb_attn")
+gather_mod = importlib.import_module("repro_torch.kernels.nbr_gather")
 
 torch.set_num_threads(1)
 
@@ -216,7 +217,8 @@ def test_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR / "never-built")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["cheb_attn"])
-    assert _build.kernel_names() == ["cheb_attn", "flash_attn", "poly_attn", "wkv_chunk"]
+    assert _build.kernel_names() == [
+        "cheb_attn", "flash_attn", "nbr_gather", "poly_attn", "wkv_chunk"]
 
 
 @pytest.mark.parametrize("edit", ["header", "source", "new header"])
@@ -486,3 +488,184 @@ def test_cpu_gradients_launch_no_kernel():
     before = (cheb_attn.launches, cheb_attn_backward.launches)
     _port_grads(*_grad_inputs("2d", "negative"))
     assert (cheb_attn.launches, cheb_attn_backward.launches) == before
+
+
+# ---- nbr_gather: plain indexing on the CPU; the backward's plan and its
+# plain version, which repeats the CUDA kernel's order of additions ----
+
+CHUNK = gather_mod.CHUNK
+
+
+def _padded_lists(n, b, nodes=None, seed=0, hub_share=0.5):
+    """A padded neighbour list as csr_to_padded makes it: a row's slots past
+    its degree point at node 0."""
+    rng = np.random.default_rng(seed)
+    nodes = nodes or n
+    idx = rng.integers(0, nodes, (n, b))
+    deg = rng.integers(0, b + 1, n)
+    deg[rng.random(n) >= hub_share] = b
+    idx[np.arange(b)[None, :] >= deg[:, None]] = 0
+    return torch.from_numpy(idx)
+
+
+GATHER_SHAPES = {            # (rows, B, nodes, H, F)
+    "scores-8-heads": (700, 32, 700, 8, 1),
+    "scores-1-head": (700, 32, 700, 1, 1),
+    "rows-40": (700, 32, 700, 1, 40),
+    "rows-odd-width": (300, 7, 300, 2, 5),
+    "B-1": (3 * CHUNK + 1, 1, 500, 2, 4),
+    "empty-segments": (50, 3, 5000, 1, 8),
+    "one-chunk": (CHUNK, 1, 40, 1, 1),
+    "chunk-plus-one": (CHUNK + 1, 1, 40, 3, 1),
+    "chunk-less-one": (CHUNK - 1, 1, 40, 1, 4),
+}
+
+
+@pytest.mark.parametrize("shape", list(GATHER_SHAPES))
+def test_gather_plan_is_a_stable_order_whose_runs_cover_every_slot(shape):
+    rows, b, nodes, _, _ = GATHER_SHAPES[shape]
+    idx = _padded_lists(rows, b, nodes)
+    perm, keys = gather_mod.gather_plan(idx, nodes)
+    assert perm.dtype == keys.dtype == torch.int32
+    flat = idx.reshape(-1)
+    assert torch.equal(torch.sort(perm.long()).values, torch.arange(flat.numel()))
+    assert torch.equal(flat[perm.long()], keys.long())
+    assert (keys[1:] >= keys[:-1]).all()
+    same = keys[1:] == keys[:-1]
+    assert (perm[1:][same] > perm[:-1][same]).all()          # stable: slot order in a run
+    runs = torch.bincount(keys.long(), minlength=nodes)
+    assert runs.sum() == rows * b and torch.equal(runs, torch.bincount(flat, minlength=nodes))
+
+
+def test_gather_plan_counts_a_negative_index_from_the_end():
+    idx = torch.tensor([[0, -1], [2, -3]])
+    perm, keys = gather_mod.gather_plan(idx, 5)
+    assert keys.tolist() == [0, 2, 2, 4] and perm.tolist() == [0, 2, 3, 1]
+
+
+def _index_backward(x, idx, grad):
+    x = x.detach().requires_grad_(True)
+    return torch.autograd.grad(x[:, idx, :], x, grad)[0]
+
+
+@pytest.mark.parametrize("shape", list(GATHER_SHAPES))
+def test_plain_segment_sum_matches_autograd_through_indexing(shape):
+    rows, b, nodes, heads, f = GATHER_SHAPES[shape]
+    idx = _padded_lists(rows, b, nodes, seed=1)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((heads, nodes, f)))
+    grad = torch.from_numpy(rng.standard_normal((heads, rows, b, f)))
+    want = _index_backward(x, idx, grad)
+    # float64: only the order of the additions differs
+    torch.testing.assert_close(gather_mod.nbr_gather_backward_plain(grad, idx, nodes), want,
+                               rtol=1e-12, atol=1e-12)
+    # float32, the kernels' type: the chunked order against the index backward's
+    got32 = gather_mod.nbr_gather_backward_plain(grad.float(), idx, nodes)
+    torch.testing.assert_close(got32, want.float(), rtol=1e-5, atol=1e-5)
+
+
+def test_plain_segment_sum_folds_a_hub_over_many_chunks_in_levels():
+    """A node with 10**5 slots spans ~1,600 chunks, so its partials fold in
+    three levels; every other run is short."""
+    rng = np.random.default_rng(3)
+    idx = _padded_lists(4000, 32, 4000, seed=4, hub_share=0.0)
+    flat = idx.view(-1)
+    flat[torch.from_numpy(rng.choice(flat.numel(), 10 ** 5, replace=False))] = 7
+    grad = torch.from_numpy(rng.standard_normal((2, 4000, 32, 3)))
+    x = torch.zeros(2, 4000, 3, dtype=torch.float64)
+    want = _index_backward(x, idx, grad)
+    levels, n = 0, idx.numel()
+    while True:
+        levels += 1
+        if n <= CHUNK:
+            break
+        n = 2 * -(-n // CHUNK)
+    assert levels >= 3
+    torch.testing.assert_close(gather_mod.nbr_gather_backward_plain(grad, idx, 4000), want,
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_plain_levels_keep_each_crossing_run_contiguous():
+    """What lets a next level fold the partials: each key's entries form
+    one run, and a key written at one level never reaches the next."""
+    rng = np.random.default_rng(5)
+    keys = torch.from_numpy(np.sort(rng.integers(0, 40, 5000)).astype(np.int32))
+    keys[keys == 3] = 2                        # one long run, others short
+    vals = torch.ones(1, keys.numel(), 1, dtype=torch.float64)
+    dx = torch.zeros(1, 40, 1, dtype=torch.float64)
+    written = set()
+    level = (vals, keys)
+    while level is not None:
+        before = dx.clone()
+        level = gather_mod._level_plain(*level, dx)
+        now = set(torch.nonzero((dx != before).view(-1)).view(-1).tolist())
+        assert not now & written
+        written |= now
+        if level is not None:
+            k = level[1][level[1] >= 0]
+            starts = torch.cat([torch.tensor([True]), k[1:] != k[:-1]])
+            assert len(set(k.tolist())) == int(starts.sum())
+            assert not set(k.tolist()) & written
+    assert torch.equal(dx.view(-1), torch.bincount(keys.long(), minlength=40).double())
+
+
+def test_nbr_gather_on_cpu_is_plain_indexing_bit_for_bit():
+    idx = _padded_lists(300, 16, 300, seed=6)
+    rng = np.random.default_rng(7)
+    for heads, f in ((8, 1), (1, 40)):
+        x = torch.from_numpy(rng.standard_normal((heads, 300, f)).astype(np.float32))
+        grad = torch.from_numpy(rng.standard_normal((heads, 300, 16, f)).astype(np.float32))
+        before = gather_mod.nbr_gather_backward.launches
+        xa, xb = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+        ya, yb = gather_mod.nbr_gather(xa, idx), xb[:, idx, :]
+        assert torch.equal(ya, yb)
+        ga, = torch.autograd.grad(ya, xa, grad)
+        gb, = torch.autograd.grad(yb, xb, grad)
+        assert torch.equal(ga, gb)
+        assert gather_mod.nbr_gather_backward.launches == before
+
+
+def test_nbr_gather_without_a_gradient_is_plain_indexing_on_any_device(monkeypatch):
+    """Serving and evaluate run the gathers forward only: no node, no kernel."""
+    monkeypatch.setattr(gather_mod, "_lib", None)
+    monkeypatch.setattr(_build, "load_library", lambda name: pytest.fail("no kernel"))
+    x = torch.empty((2, 10, 3), device="meta")
+    idx = torch.zeros((10, 4), dtype=torch.int64, device="meta")
+    assert gather_mod.nbr_gather(x, idx).shape == (2, 10, 4, 3)
+    with torch.no_grad():
+        assert gather_mod.nbr_gather(x.requires_grad_(True), idx).grad_fn is None
+    with torch.inference_mode():
+        y = torch.randn(2, 10, 3, requires_grad=True)
+        assert gather_mod.nbr_gather(y, torch.zeros((10, 4), dtype=torch.int64)).grad_fn is None
+
+
+def test_nbr_gather_refuses_a_tensor_off_the_cpu_it_cannot_take():
+    x = torch.empty((2, 10, 3), device="meta", requires_grad=True)
+    idx = torch.zeros((10, 4), dtype=torch.int64, device="meta")
+    with pytest.raises(TypeError, match="CUDA device"):
+        gather_mod.nbr_gather(x, idx)
+
+
+def test_nbr_gather_backward_raises_when_the_library_cannot_load(monkeypatch):
+    def no_library(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(gather_mod, "_lib", None)
+    monkeypatch.setattr(_build, "load_library", no_library)
+    grad = torch.empty((2, 10, 4, 3), device="meta")
+    idx = torch.zeros((10, 4), dtype=torch.int64, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        gather_mod.nbr_gather_backward(grad, idx, 10)
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_non_cuda_device_is_refused_by_the_gather_backward_wrapper(monkeypatch, device):
+    """The CPU's backward is nbr_gather_backward_plain, which nbr_gather's
+    plain indexing never needs; the kernel's wrapper refuses a CPU tensor."""
+    monkeypatch.setattr(gather_mod, "_lib", object())
+    before = gather_mod.nbr_gather_backward.launches
+    grad = torch.empty((2, 10, 4, 3), device=device)
+    idx = torch.zeros((10, 4), dtype=torch.int64, device=device)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        gather_mod.nbr_gather_backward(grad, idx, 10)
+    assert gather_mod.nbr_gather_backward.launches == before
