@@ -70,7 +70,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
     from bench.harness import spec
 
     out = cell.runner().measure(cell, seed, seconds, trace, device, t_start)
-    e2e = {m["name"]: {"value": out["end_to_end"][m["name"]], "unit": m["unit"]}
+    values = out["end_to_end"]
+    e2e = {m["name"]: {"value": values[m["name"] if m["name"] in values
+                                       else spec.base_name(m["name"])], "unit": m["unit"]}
            for m in cell.end_to_end}
     ctx = out["context"]
     layer = {}
@@ -100,7 +102,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
         # what an untraced run can read too (train_mfu, from the host clock)
         result["untraced_per_layer"] = layer
     result["card"] = power_limit() if dev.type == "cuda" else None
-    checks = checks_of(out["numbers"], cell.settings["limits"])
+    numbers = out["numbers"]
+    result["window"] = dict(out.get("window", {}), **{k: numbers[k] for k in numbers
+                                                if k.endswith("_window")})
+    checks = checks_of(numbers, cell.settings["limits"])
     result["correct"] = is_correct(checks)
     result["checks"] = checks
     return result

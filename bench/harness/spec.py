@@ -14,6 +14,11 @@ each lives in files of its own, and so does each per-layer metric:
 
 So a later change adds a configuration, a cell or a metric as new files
 and an entry in ``BENCHMARK.json``, and edits none.
+
+A metric named ``<base>.<variant>`` is the quantity ``<base>`` in the cells
+it lists, split off where those cells report another end-to-end metric
+(say, with a bound of their own): the runner's ``<base>`` value, and the
+reader ``bench/metrics/<base>.py`` unless ``<base>.<variant>.py`` exists.
 """
 from __future__ import annotations
 
@@ -93,9 +98,18 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     )
 
 
+def base_name(name: str) -> str:
+    """``<base>`` of a metric named ``<base>.<variant>``; else the name."""
+    return name.rsplit(".", 1)[0] if "." in name else name
+
+
 def metric_reader(name: str):
-    """The ``read(ctx)`` of ``bench/metrics/<name>.py``."""
-    return load_module(BENCH / "metrics" / f"{name}.py", f"bench_metric_{name}").read
+    """The ``read(ctx)`` of ``bench/metrics/<name>.py``, or of its base's."""
+    path = BENCH / "metrics" / f"{name}.py"
+    if not path.is_file():
+        name = base_name(name)
+        path = BENCH / "metrics" / f"{name}.py"
+    return load_module(path, f"bench_metric_{name}").read
 
 
 def counts(name: str) -> ModuleType:

@@ -1,6 +1,7 @@
 """Host work of cohort streaming and the privacy stack
 (``federated/cohort.py``, ``privacy/``): the ``staging`` and
-``secure_agg_mask`` spans' time a round, in ms, over the window's calls.
+``secure_agg_mask`` spans' time a round, in ms: their sum over the
+window's calls over the rounds those calls ran.
 Only cohort-streamed traffic has these spans. Moves ``train_round_s``."""
 
 NAMES = ("staging", "secure_agg_mask")

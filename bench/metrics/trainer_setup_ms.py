@@ -1,10 +1,12 @@
 """Trainer set-up inside every call (``federated/trainer.py``): partition,
 client masks, parameter and optimizer init, the result's reports. Per call,
-the call's synchronized wall time less its ``round`` spans, in ms, averaged
-over the window's calls. Left out besides is the privacy accounting that
-only a traced run does: with telemetry on, ``record_epsilon`` runs after
-each round and ends in a ``privacy.round`` event, so the time from the end
-of a round to that event is not counted. Moves ``train_round_s``."""
+not per round: a call of ``rounds_per_call`` rounds pays it once, and each
+round carries this over ``rounds_per_call``. The call's synchronized wall
+time less its ``round`` spans, in ms, averaged over the window's calls.
+Left out besides is the privacy accounting that only a traced run does:
+with telemetry on, ``record_epsilon`` runs after each round and ends in a
+``privacy.round`` event, so the time from the end of a round to that event
+is not counted. Moves ``train_round_s``."""
 
 
 def read(ctx):

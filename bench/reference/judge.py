@@ -14,10 +14,11 @@ Numbers, each read against a limit of its own:
   client;
 - ``round``: the norm of the global model's change over the round (DP,
   masks and FedAvg included), by the worst kept leaf, of the warm call
-  and of the window's last call;
+  and of the first round of every window call;
 - ``eval``: the widest gap between the program's evaluation logits and
   the reference's forward at the program's own global params, over the
-  largest reference logit.
+  largest reference logit, of the warm call and of the window's last
+  call's first round.
 
 Which leaves are kept is a rule on the reference's first gradient,
 averaged over the round's clients, never a name: half the median leaf's
@@ -70,11 +71,19 @@ def kept_leaves(ref: RoundReading) -> List[int]:
     return [i for i, m in enumerate(mean) if m >= KEPT_GRAD * med]
 
 
+def _eval_gap(pr: Problem, params: Sequence[torch.Tensor], logits: torch.Tensor) -> float:
+    judged = eval_logits(pr, params)
+    return float((logits.to(judged.device) - judged).abs().max()
+                 / judged.abs().max().clamp_min(1e-30))
+
+
 def judge(pr: Problem, p0: Sequence[torch.Tensor], prog: RoundReading, ref: RoundReading,
-          window_params: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, float]:
-    """The numbers compared, by name. The reference's forward at the
-    program's global params runs here, so call with the reference's
-    precision set."""
+          window_params: Sequence[Sequence[torch.Tensor]] = (),
+          window_logits: Optional[torch.Tensor] = None) -> Dict[str, float]:
+    """The numbers compared, by name. ``window_params`` are the first-round
+    global params of the window's calls, ``window_logits`` the last one's
+    evaluation logits. The reference's forward at the program's global
+    params runs here, so call with the reference's precision set."""
     if len(prog.losses) != len(ref.losses) or len(prog.grad1) != len(ref.grad1):
         raise ValueError(
             f"the program ran {len(prog.losses)} local steps over {len(prog.grad1)} "
@@ -89,9 +98,14 @@ def judge(pr: Problem, p0: Sequence[torch.Tensor], prog: RoundReading, ref: Roun
 
     local = max(_worst_leaf(change(lp), change(lr), kept)
                 for lp, lr in zip(prog.local, ref.local))
-    rnd = max(_worst_leaf(change(g), change(ref.global_params), kept)
-              for g in [prog.global_params] + ([window_params] if window_params else []))
-    judged = eval_logits(pr, prog.global_params)
-    ev = float((prog.eval_logits.to(judged.device) - judged).abs().max()
-               / judged.abs().max().clamp_min(1e-30))
-    return {"loss": loss, "grad1": grad1, "local": local, "round": rnd, "eval": ev}
+    rounds = [_worst_leaf(change(g), change(ref.global_params), kept)
+              for g in [prog.global_params, *window_params]]
+    evals = [_eval_gap(pr, prog.global_params, prog.eval_logits)]
+    if window_logits is not None:
+        evals.append(_eval_gap(pr, window_params[-1], window_logits))
+    out = {"loss": loss, "grad1": grad1, "local": local, "round": max(rounds),
+           "eval": max(evals)}
+    if window_params:
+        # the window's share of the last two, for the record; judged above
+        out.update(round_window=max(rounds[1:]), eval_window=max(evals[1:], default=None))
+    return out

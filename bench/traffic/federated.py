@@ -13,9 +13,15 @@ constructors and pack precomputation, and makes one warm call of one round with 
 window's arguments, reading its local steps (``bench/harness/record.py``).
 The window then runs whole calls of ``rounds_per_call`` rounds back to
 back, each from the same params and pack, each ended by a synchronize, and
-starts no call after ``seconds``. The reference follows the warm call's
-round from the same inputs once the program's state is freed; it needs
-no pack, since the pack's masked slots are multiplied by zero.
+starts no call after ``seconds``. A call of many rounds is what a
+deployment runs, and it spreads the call's own host work (the partition,
+the model's build, the result's report) over its rounds. Every window
+call starts from the same inputs as the warm call, so its first round is
+the warm call's round: the window hands on each call's first-round global
+params and the last call's first-round evaluation logits. The reference
+follows that round from the same inputs once the program's state is
+freed, and the comparison judges the warm call and the window's calls by
+it; it needs no pack, since the pack's masked slots are multiplied by zero.
 """
 from __future__ import annotations
 
@@ -144,7 +150,7 @@ class ProgramState:
     pack: Any
     device: torch.device
     reading: Optional[RoundReading] = None
-    last_params: Optional[List[torch.Tensor]] = None     # the window's last call's result
+    window: Optional[Any] = None          # record.WindowRecorder of the window's calls
 
     def call(self, rounds: Optional[int] = None):
         from repro_torch.federated.trainer import run_federated
@@ -208,21 +214,24 @@ def warm_call(state: ProgramState, cell) -> RoundReading:
 
 
 def run_window(state: ProgramState, seconds: float) -> List[Dict]:
-    """Whole calls back to back; none starts after ``seconds``. The last
-    call's global params are kept for the comparison."""
-    from bench.harness.record import tree_leaves
+    """Whole calls back to back; none starts after ``seconds``. Each call's
+    first round is read for the comparison (``state.window``)."""
+    from repro_torch.federated import trainer
+
+    from bench.harness.record import WindowRecorder
 
     calls = []
-    t0 = time.perf_counter()
-    while True:
-        a = time.perf_counter()
-        result = state.call()
-        sync(state.device)
-        b = time.perf_counter()
-        calls.append({"start": a, "end": b, "wall_s": b - a, "rounds": state.cfg.rounds})
-        if b - t0 >= seconds:
-            state.last_params = [p.detach().clone() for p in tree_leaves(result["params"])]
-            return calls
+    state.window = WindowRecorder(trainer, tuple(state.reading.eval_logits.shape), state.device)
+    with state.window:
+        t0 = time.perf_counter()
+        while True:
+            a = time.perf_counter()
+            state.call()
+            sync(state.device)
+            b = time.perf_counter()
+            calls.append({"start": a, "end": b, "wall_s": b - a, "rounds": state.cfg.rounds})
+            if b - t0 >= seconds:
+                return calls
 
 
 def free(state: ProgramState) -> None:
@@ -277,9 +286,13 @@ def reference_round(cell, pr: Problem, inputs: Inputs, *, tf32: bool = False,
 
 
 def compare(cell, pr: Problem, inputs: Inputs, prog: RoundReading, ref: RoundReading,
-            window_params: Optional[List[torch.Tensor]] = None) -> Dict[str, float]:
+            window: Optional[Any] = None) -> Dict[str, float]:
+    """The numbers compared; with ``window`` (a ``WindowRecorder``), the
+    window's calls are judged beside the warm call."""
+    judged = () if window is None else window.params
+    logits = None if window is None else window.logits
     with precision(False):
-        return judge(pr, leaves(inputs.params0), prog, ref, window_params)
+        return judge(pr, leaves(inputs.params0), prog, ref, judged, logits)
 
 
 # ---------------------------------------------------------------------------
@@ -354,14 +367,20 @@ def measure(cell, seed: int, seconds: float, trace: bool, device, t_start: float
         telemetry.disable()
         telemetry.reset()
 
-    prog, last = state.reading, state.last_params
+    prog, window = state.reading, state.window
+    if len(window.params) != len(calls):
+        raise RuntimeError(
+            f"{len(window.params)} of the window's {len(calls)} calls handed on their first "
+            "round: the benchmark reads the trainer's setup_run and masked_accuracy")
     free(state)
     pr = reference_problem(cell, inputs, dev)
     ref = reference_round(cell, pr, inputs)
-    numbers = compare(cell, pr, inputs, prog, ref, last if state.cfg.rounds == 1 else None)
+    numbers = compare(cell, pr, inputs, prog, ref, window)
     return {
         "end_to_end": {"train_round_s": train_round_s,
                        "train_peak_gib": window_peak / 2 ** 30, "setup_s": setup_s},
         "context": ctx, "numbers": numbers, "attempted": rounds, "failed": 0,
         "memory_peak_bytes": int(max(setup_peak, window_peak)),
+        "window": {"calls": len(calls), "judged": len(window.params), "hook_s": window.hook_s,
+                   "call_s": [c["wall_s"] for c in calls]},
     }
