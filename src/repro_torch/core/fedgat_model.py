@@ -9,22 +9,37 @@ Parameters keep the reference's layouts — per layer ``W (H, d_in, d_out)``,
 ``a1``/``a2 (H, d_out)`` — as an ``nn.ModuleList`` of ``nn.ParameterDict``s.
 :func:`params_from_numpy` and :func:`pack_from_numpy` bring the
 reference's parameter list and packs across.
+
+``FedGATConfig(skip=True)`` (the port's own; the reference has no skip) is
+the GAT paper's inductive model (Veličković et al. 2018, §3.3): each hidden
+layer after the first carries a learned skip ``P (H, d_in, d_out)`` beside
+``W``, and adds ``x P`` per head, concatenated, to its attention output
+before the ELU, as ``attn_head(..., residual=True)`` in the authors' code
+does where the layer's input and head widths differ (without its bias, as
+no layer of the port has one).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import telemetry
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import chebyshev
 from repro_torch.core.engine import Engine, get_engine
 from repro_torch.core.fedgat_matrix import FedGATPack
 from repro_torch.core.fedgat_vector import VectorPack
-from repro_torch.core.gat import elu, gat_layer_nbr, init_gat_layer, init_gat_params
+from repro_torch.core.gat import (
+    elu,
+    gat_layer_nbr,
+    init_gat_layer,
+    init_gat_params,
+    skip_projection,
+)
 
 
 @dataclass(frozen=True)
@@ -39,6 +54,18 @@ class FedGATConfig:
     engine: str = "matrix"            # layer-1 engine (registry name)
     leaky_slope: float = 0.2
     r: float = 1.7                    # projector obfuscation constant
+    # A skip across each hidden layer after the first (the reference has
+    # none). Marked port_only: the config's canonical form leaves it out
+    # while False (telemetry.manifest.reference_fields), so bundles and
+    # config_hash of every config the reference can express stay its own.
+    skip: bool = field(default=False, metadata={"port_only": True})
+
+    def __post_init__(self) -> None:
+        if self.skip and self.num_layers < 3:
+            raise ValueError(
+                f"skip=True needs num_layers >= 3: the skip crosses a hidden layer "
+                f"after the first, and num_layers={self.num_layers} has none"
+            )
 
     def coeffs(self) -> np.ndarray:
         return chebyshev.attention_series(
@@ -59,20 +86,27 @@ def layer_shapes(d_in: int, num_classes: int, cfg: FedGATConfig):
     )
 
 
+def skip_layer(cfg: FedGATConfig, li: int) -> bool:
+    """Whether layer ``li`` (from 0) carries the skip ``P``: with
+    ``cfg.skip``, every hidden layer after the first."""
+    return cfg.skip and 0 < li < cfg.num_layers - 1
+
+
 def init_params(
     gen: torch.Generator, d_in: int, num_classes: int, cfg: FedGATConfig,
     *, device: DeviceLike = None,
 ) -> nn.ModuleList:
     """Random GAT parameters drawn from ``gen`` (a CPU generator), placed on
-    ``device`` (default ``cuda``)."""
+    ``device`` (default ``cuda``). With ``cfg.skip`` the hidden layers after
+    the first draw ``P`` after their ``a2``."""
     dev = resolve_device(device)
     if cfg.num_layers <= 2:
         return init_gat_params(
             gen, d_in, cfg.hidden, num_classes, cfg.heads, cfg.out_heads, device=dev
         )
     return nn.ModuleList([
-        init_gat_layer(gen, din, dout, heads, device=dev)
-        for heads, din, dout in layer_shapes(d_in, num_classes, cfg)
+        init_gat_layer(gen, din, dout, heads, device=dev, skip=skip_layer(cfg, li))
+        for li, (heads, din, dout) in enumerate(layer_shapes(d_in, num_classes, cfg))
     ])
 
 
@@ -91,7 +125,8 @@ def params_from_numpy(
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
     return nn.ModuleList([
-        nn.ParameterDict({k: nn.Parameter(tensor(layer[k])) for k in layer})
+        # pairs keep the layer's order (W, a1, a2, P); a dict would be sorted
+        nn.ParameterDict([(k, nn.Parameter(tensor(layer[k]))) for k in layer])
         for layer in params
     ])
 
@@ -131,15 +166,42 @@ def layered_forward(
     nbr_idx: torch.Tensor,
     nbr_mask: torch.Tensor,
 ) -> torch.Tensor:
-    """Engine layer 1 + exact GAT layers l > 1 -> class logits (N, C)."""
+    """Engine layer 1 + exact GAT layers l > 1 -> class logits (N, C). The
+    hidden layers that ``skip_layer(engine.cfg, ...)`` names add their skip
+    ``P`` before the ELU; params that hold ``P`` elsewhere, or lack it
+    there, raise.
+
+    The ``exact_layers`` and ``skip`` device spans open only where
+    ``exact_layers_fwd_ms`` and ``skip_fwd_ms`` read them: in a local
+    step's forward (grad on; evaluation and serving record none) of a
+    model with a hidden exact layer. A two-layer model's exact layers are
+    its output layer alone, and its forwards record no more spans than
+    ``forward`` itself."""
     x = engine.apply(params[0], pack, coeffs, h, nbr_idx, nbr_mask, concat=True)
     x = elu(x)
-    for li in range(1, len(params)):
-        last = li == len(params) - 1
-        x = gat_layer_nbr(params[li], x, nbr_idx, nbr_mask, concat=not last)
-        if not last:
-            x = elu(x)
+    timed = torch.is_grad_enabled() and len(params) > 2
+    span = telemetry.device_span if timed else _no_span
+    with span("exact_layers"):
+        for li in range(1, len(params)):
+            p = params[li]
+            last = li == len(params) - 1
+            skip = skip_layer(engine.cfg, li)
+            if skip != ("P" in p):
+                raise ValueError(
+                    f"layer {li}: the model config (skip={engine.cfg.skip}) "
+                    f"{'asks for' if skip else 'has no'} the skip P, and the params "
+                    f"{'lack' if skip else 'hold'} it"
+                )
+            out = gat_layer_nbr(p, x, nbr_idx, nbr_mask, concat=not last)
+            if skip:
+                with span("skip"):
+                    out = out + skip_projection(p["P"], x)
+            x = out if last else elu(out)
     return x
+
+
+def _no_span(name: str) -> Any:
+    return telemetry.NULL_SPAN
 
 
 def graph_tensors(graph, device: torch.device):

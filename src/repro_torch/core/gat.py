@@ -34,23 +34,27 @@ def elu(x: torch.Tensor) -> torch.Tensor:
 
 def init_gat_layer(
     gen: torch.Generator, d_in: int, d_out: int, heads: int, scale: float = 0.5,
-    *, device: torch.device | str = "cpu",
+    *, device: torch.device | str = "cpu", skip: bool = False,
 ) -> nn.ParameterDict:
     """Glorot-ish uniform init, scaled down so Assumption 2 (norm <= 1)
     loosely holds. Same distribution as the reference, different bits:
     the draws come from ``gen`` (a CPU generator) and then move to
-    ``device``."""
+    ``device``. With ``skip``, a skip projection ``P`` shaped and drawn like
+    ``W`` follows ``a2``."""
     lim = scale * math.sqrt(6.0 / (d_in + d_out))
 
     def uniform(*shape: int) -> nn.Parameter:
         u = torch.rand(shape, generator=gen, dtype=torch.float32)
         return nn.Parameter(((2.0 * u - 1.0) * lim).to(device))
 
-    return nn.ParameterDict({
+    layer = nn.ParameterDict({
         "W": uniform(heads, d_in, d_out),
         "a1": uniform(heads, d_out),
         "a2": uniform(heads, d_out),
     })
+    if skip:
+        layer["P"] = uniform(heads, d_in, d_out)
+    return layer
 
 
 def init_gat_params(
@@ -100,6 +104,13 @@ def gat_layer_nbr(
     if concat:
         return out.permute(1, 0, 2).reshape(h.shape[0], -1)
     return out.mean(dim=0)
+
+
+def skip_projection(P: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x P_k`` for each head k, concatenated as a concat layer's heads:
+    x (N, d_in), P (H, d_in, d_out) -> (N, H * d_out), one GEMM."""
+    heads, d_in, d_out = P.shape
+    return x @ P.permute(1, 0, 2).reshape(d_in, heads * d_out)
 
 
 def gat_forward(

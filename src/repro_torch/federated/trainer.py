@@ -400,7 +400,8 @@ def build_result(
 
 def _as_parameters(tree: Tree) -> nn.ModuleList:
     return nn.ModuleList([
-        nn.ParameterDict({k: nn.Parameter(v) for k, v in layer.items()}) for layer in tree
+        # pairs keep the layer's order (W, a1, a2, P); a dict would be sorted
+        nn.ParameterDict([(k, nn.Parameter(v)) for k, v in layer.items()]) for layer in tree
     ])
 
 

@@ -1,7 +1,8 @@
 """Serving bundles in the reference's format (``repro/serving/checkpoint.py``).
 
-A bundle is a directory holding ``params.npz`` (keys ``params/<layer>/<W|a1|a2>``
-plus ``__step__``) and ``meta.json`` (the effective ``FedGATConfig`` under
+A bundle is a directory holding ``params.npz`` (keys ``params/<layer>/<W|a1|a2>``,
+``P`` too on a skip model's hidden layers after the first, plus ``__step__``)
+and ``meta.json`` (the effective ``FedGATConfig`` under
 ``"model"``, the privacy config under ``"privacy"``, method, backend,
 num_clients, beta, seed and step, and the run manifest under
 ``"manifest"``). :func:`save_bundle` writes one from a Trainer run,
@@ -21,8 +22,13 @@ from torch import nn
 
 from repro_torch._device import DeviceLike
 from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
-from repro_torch.core.fedgat_model import FedGATConfig, layer_shapes, params_from_numpy
-from repro_torch.telemetry.manifest import build_manifest
+from repro_torch.core.fedgat_model import (
+    FedGATConfig,
+    layer_shapes,
+    params_from_numpy,
+    skip_layer,
+)
+from repro_torch.telemetry.manifest import build_manifest, reference_fields
 
 PARAMS_NAME = "params.npz"
 META_NAME = "meta.json"
@@ -62,7 +68,7 @@ def save_bundle(
         "beta": float(fed_cfg.beta),
         "seed": int(fed_cfg.seed),
         "step": int(step),
-        "model": dataclasses.asdict(method_model_config(fed_cfg)),
+        "model": reference_fields(method_model_config(fed_cfg)),
         "privacy": dataclasses.asdict(fed_cfg.privacy),
         "manifest": build_manifest(cfg=fed_cfg),
     }
@@ -99,6 +105,8 @@ def load_bundle(path: str, graph: Any, *, device: DeviceLike = None) -> ServingC
         layer_shapes(graph.feature_dim, graph.num_classes, model_cfg)
     ):
         want = {"W": (heads, d_in, d_out), "a1": (heads, d_out), "a2": (heads, d_out)}
+        if skip_layer(model_cfg, li):
+            want["P"] = (heads, d_in, d_out)
         layer = {}
         for name, shape in want.items():
             key = f"params/{li}/{name}"

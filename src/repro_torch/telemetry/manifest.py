@@ -25,15 +25,25 @@ import torch
 
 from repro_torch._device import process_count
 
-__all__ = ["config_hash", "build_manifest"]
+__all__ = ["config_hash", "build_manifest", "reference_fields"]
+
+
+def reference_fields(obj: Any) -> Dict[str, Any]:
+    """A config dataclass's fields by name, less those marked ``port_only``
+    in their metadata (settings the reference lacks) while they hold their
+    default: a config the reference can express gives the reference's
+    fields."""
+    return {
+        f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
+        if not (f.metadata.get("port_only") and getattr(obj, f.name) == f.default)
+    }
 
 
 def _jsonable(obj: Any) -> Any:
     """A deterministic JSON-friendly form of a (possibly nested dataclass)
     config object."""
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return {f.name: _jsonable(getattr(obj, f.name))
-                for f in dataclasses.fields(obj)}
+        return {k: _jsonable(v) for k, v in reference_fields(obj).items()}
     if isinstance(obj, dict):
         return {str(k): _jsonable(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):

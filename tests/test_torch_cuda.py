@@ -27,6 +27,11 @@ float64 (within the float32 error of the kernel's order of additions), at
 ogbn-arxiv's padded shape with a hub of 10**5 slots, at chunk edges, with
 B 1, empty segments and a misaligned cotangent; its determinism, its
 launches per local step and its profiler node.
+The GAT paper's inductive model (three layers of 4 x 256 heads, the skip
+across the hidden layer, six averaged output heads) through the kernel
+engine against the plain reference ``tests/plain_gat_skip.py`` with TF32
+off, at a mid size; TF32 products in the reference must fail the same
+tolerance.
 The dense GAT/GCN forms against the neighbour-list forms and
 ``moments_direct`` against the CPU on ``cora_like``, the theorem drivers
 of ``benchmarks_torch`` on the card against the CPU, and the rows of
@@ -1399,3 +1404,63 @@ def test_cuda_nbr_gather_bwd_ms_reads_the_backward_node():
     assert ms is not None and ms > 0
     assert not any("indexing_backward" in name for name, _ in prof.kernels)
     assert any("nbr_gather_bwd_level" in name for name, _ in prof.kernels)
+
+
+@pytest.mark.cuda
+def test_cuda_skip_model_matches_the_plain_reference_and_tf32_does_not():
+    """Logits and every leaf's gradient, P's included, at N 5,000, d 128,
+    B 32 and the configuration's widths: float32 on both sides parts by
+    summation order alone (about 1e-6 of the largest value), TF32 products
+    by about 1e-3 (10-bit mantissas over 1024-wide sums); the tolerance,
+    1e-4 of the largest value, lies between them."""
+    _need_card()
+    import plain_gat_skip as plain
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core.engine import get_engine
+    from repro_torch.core.fedgat_model import graph_tensors, init_params, layered_forward
+    from repro_torch.core.gat import masked_cross_entropy
+    from repro_torch.graphs.graph import make_graph_from_edges, sample_neighbors
+
+    rng = np.random.default_rng(7)
+    n, d, c = 5000, 128, 40
+    feats = rng.standard_normal((n, d)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    labels = rng.integers(0, c, n).astype(np.int32)
+    train = rng.random(n) < 0.5
+    g = make_graph_from_edges(feats, labels, rng.integers(0, n, (35000, 2)), train, ~train,
+                              ~train, c)
+    g = sample_neighbors(g, 32, seed=1)
+    cfg = FedGATConfig(skip=True, num_layers=3, heads=4, hidden=256, out_heads=6,
+                       engine="kernel")
+    params = [{k: v.detach() for k, v in layer.items()}
+              for layer in init_params(torch.Generator().manual_seed(3), d, c, cfg)]
+    dev = torch.device("cuda")
+    h, idx, mask = graph_tensors(g, dev)
+    lab, tr = torch.as_tensor(labels, dtype=torch.int64, device=dev), torch.as_tensor(train,
+                                                                                      device=dev)
+    with plain.float32_matmuls():
+        engine = get_engine("kernel")(cfg)
+        coeffs = torch.as_tensor(cfg.coeffs(), dtype=torch.float32, device=dev)
+        leaves = [t.clone().requires_grad_(True) for t in tree_leaves(params)]
+        it = iter(leaves)
+        tree = [{k: next(it) for k in layer} for layer in params]
+        before = nbr_gather_backward.launches
+        logits = layered_forward(engine, tree, coeffs, None, h, idx, mask)
+        grads = torch.autograd.grad(masked_cross_entropy(logits, lab, tr), leaves)
+        assert nbr_gather_backward.launches - before == 5      # layer 1's scores, 2 a layer
+        q = torch.as_tensor(plain.attention_series(16), dtype=torch.float32, device=dev)
+        want = plain.forward(params, h, idx, mask, q)
+        _, want_grads = plain.loss_and_grads(params, h, idx, mask, q, lab, tr)
+    with plain.float32_matmuls(tf32=True):
+        tf32 = plain.forward(params, h, idx, mask, q)
+        _, tf32_grads = plain.loss_and_grads(params, h, idx, mask, q, lab, tr)
+
+    def gap(got, ref):
+        scale = max(float(r.abs().max()) for r in ref)
+        return max(float((a - b).abs().max()) for a, b in zip(got, ref)) / scale
+
+    tol = 1e-4
+    assert gap([logits.detach()], [want]) <= tol and gap(grads, want_grads) <= tol
+    assert gap([tf32], [want]) > tol or gap(tf32_grads, want_grads) > tol
+    assert float(grads[6].abs().max()) > 0

@@ -49,6 +49,7 @@ from repro_torch.serving import (
     mass_drift,
     patch_pack,
 )
+from repro_torch.telemetry.manifest import reference_fields
 
 torch.set_num_threads(1)
 
@@ -153,7 +154,7 @@ def test_patch_pack_and_mass_drift_match_reference(tiny, bundle, engine):
     g, jg = tiny
     ck = load_bundle(bundle, g, device="cpu")
     cfg = dataclasses.replace(ck.model, engine=engine)
-    jcfg = JFedGATConfig(**dataclasses.asdict(cfg))
+    jcfg = JFedGATConfig(**reference_fields(cfg))
     jengine, tengine = j_get_engine(engine)(jcfg), get_engine(engine)(cfg)
     jpack = jengine.precompute(jax.random.PRNGKey(3), jnp.asarray(jg.features),
                                jnp.asarray(jg.nbr_idx), jnp.asarray(jg.nbr_mask))

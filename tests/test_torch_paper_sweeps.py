@@ -33,6 +33,7 @@ from repro.core.gcn import init_gcn_params as j_init_gcn_params
 from repro.graphs import Graph as JGraph
 from repro_torch.federated import trainer
 from repro_torch.graphs import make_cora_like
+from repro_torch.telemetry.manifest import reference_fields
 
 torch.set_num_threads(1)
 
@@ -49,7 +50,7 @@ def _reference_cfg(cfg):
     """The reference's FederatedConfig with the port's field values."""
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
           if f.name not in ("model", "privacy")}
-    return jtrainer.FederatedConfig(model=JFedGATConfig(**dataclasses.asdict(cfg.model)), **kw)
+    return jtrainer.FederatedConfig(model=JFedGATConfig(**reference_fields(cfg.model)), **kw)
 
 
 class _FromReference(trainer.Trainer):
@@ -76,7 +77,7 @@ def _centralized_from_reference(g, model="gat", steps=200, lr=0.01, weight_decay
     if model == "gcn":
         params = j_init_gcn_params(k_init, jg.feature_dim, gcn_hidden, jg.num_classes)
     else:
-        jmcfg = (JFedGATConfig(**dataclasses.asdict(mcfg)) if mcfg is not None
+        jmcfg = (JFedGATConfig(**reference_fields(mcfg)) if mcfg is not None
                  else JFedGATConfig(engine="exact" if model == "gat" else "direct"))
         net = JFedGAT(jmcfg)
         pack = net.precommunicate(k_pack, jg)
